@@ -7,17 +7,27 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 
 1. device  -- the card's name, count and power limit (fails without a card);
 2. build   -- builds the CUDA kernels from this checkout's sources with nvcc
-              and prints ptxas' register/spill report;
-3. kernels -- holds each kernel to its plain PyTorch version on the card at
-              B = 1024 (the main path's batch), 1000 (ragged) and 1, and
-              times kernel and plain version with CUDA events;
+              (one nvcc per source, in parallel) and prints ptxas'
+              register/spill report;
+3. kernels -- holds each kernel to its plain PyTorch version on the card:
+              the FK kernels B1/B2 at B = 1024 (the training path's batch),
+              1000 (ragged) and 1, the trunk kernel B3 at D = 1000 and
+              B = 8192 (the synthesis batch), 1000 and 1; times kernel,
+              plain version and, for B3, a cuBLAS yardstick with CUDA events;
 4. main    -- runs ``dhaug_torch.run_fk_gan.main`` with the README's
               single-frame FK-GAN command at full width (generator and both
               critics 1000 wide, MLP posenet 1024 wide with 4 stages,
               batch 1024) for 3 epochs, with the launch counters set to 0
-              just before and read just after, and checks its results;
+              just before and read just after, and checks its results and
+              its checkpoints;
 5. profile -- times GAN iterations at those shapes and reads the device's
-              busy share and top kernels from torch.profiler.
+              busy share and top kernels from torch.profiler;
+6. synth   -- runs ``dhaug_torch.synthesize_dataset.main`` on the snapshot
+              the main phase wrote (65536 poses in batches of 8192), with
+              the counters set to 0 just before and read just after, checks
+              the loaded weights, the launches and the npz (shapes, finite,
+              bone lengths in the scaler range), and times the synthesis
+              body at B = 8192.
 
 Then it prints the ``nvidia-smi`` name/power-limit line, one ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``.
@@ -36,6 +46,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOP_S = 67e12     # H100 SXM fp32, outside the tensor cores
+PEAK_BF16_FLOP_S = 989e12    # H100 SXM dense bf16 tensor cores
 
 # fp32 adds and multiplies per pose, counted from csrc/fk_chain.cuh (sin/cos
 # not counted): forward = 33 links x 8 (theta, Q, t) + 30 chain steps x 63
@@ -52,6 +63,13 @@ BWD_FLOP_PER_POSE = 2611 + 1614 + 33 * 146 + 16 * 18
 FWD_ATOL = 1e-6      # metres
 BWD_ATOL = 1e-5
 BWD_RTOL = 1e-5
+
+# the synthesis path: the generator width, the CLI's default batch, 8 batches
+SYNTH_D = 1000
+SYNTH_B = 8192
+SYNTH_POSES = 8 * SYNTH_B
+SCALER_RANGE = (0.8, 1.2)    # 1 + randint(-200, 200) / 1000
+BONE_ATOL = 1e-5             # metres: fp32 camera coordinates reach ~20 m
 
 MAIN_ARGS = ["--note", "chip_smoke", "--posenet_name", "mlp", "--lr_p", "1e-3",
              "--keypoints", "gt", "--batch_size", "1024",
@@ -78,8 +96,8 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOP_S
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOP_S):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -142,7 +160,92 @@ def phase_kernels(fk_plain, fk_cuda, device):
     return fwd_err, bwd_err, times, fwd_bound, bwd_bound
 
 
-def phase_main(fk_cuda, device):
+def trunk_flops(B: int, D: int) -> float:
+    """Multiply-adds x 2 of the trunk: 128 -> D, 6 x (D -> D), D -> 35."""
+    return 2.0 * B * (128 * D + 6 * D * D + 35 * D)
+
+
+def trunk_bytes(B: int, D: int) -> float:
+    """Each input read once, the output written once: bf16 weights, fp32
+    biases, fp32 noise and head."""
+    weights = 128 * D + 6 * D * D + 35 * D
+    return weights * 2 + (7 * D + 35) * 4 + B * 128 * 4 + B * 35 * 4
+
+
+def library_trunk(ops_bf16, noise):
+    """The yardstick: the same 8 layers as cuBLAS bf16 ``torch.addmm``
+    calls with fp32 ReLU and residual between them.  Its outputs and biases
+    are bf16, so it is not the same function as B3; the port never calls
+    it."""
+    import torch
+    w, b = ops_bf16[0::2], ops_bf16[1::2]
+    h = torch.relu(torch.addmm(b[0], noise.to(torch.bfloat16), w[0].t()).float())
+    for i in range(1, 7, 2):
+        y = torch.relu(torch.addmm(b[i], h.to(torch.bfloat16), w[i].t()).float())
+        h = torch.relu(torch.addmm(b[i + 1], y.to(torch.bfloat16), w[i + 1].t()).float() + h)
+    return torch.addmm(b[7], h.to(torch.bfloat16), w[7].t()).float()
+
+
+def phase_trunk_kernel(trunk_cuda, device):
+    """B3 against the plain bf16 trunk at D = 1000, B = 8192, 1000, 1, to
+    the rule of trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR (max and mean
+    absolute error over the std of the head); then timings at B = 8192."""
+    import numpy as np
+    import torch
+    from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
+
+    torch.manual_seed(0)
+    net = FkGeneratorNet(GeneratorConfig(dense_dim=SYNTH_D)).to(device)
+    ops = trunk_cuda.trunk_weights(net)
+    max_abs = 0.0
+    for B in (SYNTH_B, 1000, 1):
+        noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
+                                dtype=torch.float32, device=device)
+        got = trunk_cuda.trunk_forward_cuda(ops, noise)
+        torch.cuda.synchronize()
+        ref = trunk_cuda.trunk_reference_bf16(ops, noise)
+        max_rel, mean_rel = trunk_cuda.trunk_errors(got, ref)
+        err = float((got - ref).abs().max())
+        emit({"phase": "kernels", "kernel": "trunk", "D": SYNTH_D, "B": B,
+              "max_abs_err": err, "max_err_over_std": max_rel,
+              "mean_err_over_std": mean_rel})
+        if not (got.shape == (B, 35) and bool(torch.isfinite(got).all())
+                and max_rel <= trunk_cuda.TRUNK_MAX_ERR
+                and mean_rel <= trunk_cuda.TRUNK_MEAN_ERR):
+            raise AssertionError(
+                f"trunk kernel B={B}: shape {tuple(got.shape)}, max/std {max_rel} "
+                f"(<= {trunk_cuda.TRUNK_MAX_ERR}), mean/std {mean_rel} "
+                f"(<= {trunk_cuda.TRUNK_MEAN_ERR})")
+        max_abs = max(max_abs, err)
+
+    noise = torch.randn(SYNTH_B, 128, device=device)
+    ops_bf16 = tuple(t.to(torch.bfloat16) for t in ops)
+    times = {"ms": cuda_time_ms(lambda: trunk_cuda.trunk_forward_cuda(ops, noise), iters=100),
+             "plain_ms": cuda_time_ms(lambda: trunk_cuda.trunk_reference_bf16(ops, noise),
+                                      iters=20, warmup=5),
+             "library_ms": cuda_time_ms(lambda: library_trunk(ops_bf16, noise), iters=100)}
+    bound = bound_ms(trunk_bytes(SYNTH_B, SYNTH_D), trunk_flops(SYNTH_B, SYNTH_D),
+                     PEAK_BF16_FLOP_S)
+    emit({"phase": "kernels", "kernel": "trunk", "D": SYNTH_D, "B": SYNTH_B, **times,
+          "library": "8 cuBLAS bf16 addmm calls, bf16 outputs, fp32 ReLU/residual "
+                     "(not the same function)",
+          "bound_ms": bound[0], "bound_by": bound[1],
+          "tflop_per_s": trunk_flops(SYNTH_B, SYNTH_D) / times["ms"] / 1e9})
+    return max_abs, times, bound
+
+
+def reset_counts(fk_cuda, trunk_cuda) -> None:
+    fk_cuda.FWD_LAUNCHES = 0
+    fk_cuda.BWD_LAUNCHES = 0
+    trunk_cuda.TRUNK_LAUNCHES = 0
+
+
+def read_counts(fk_cuda, trunk_cuda) -> dict:
+    return {"fwd": fk_cuda.FWD_LAUNCHES, "bwd": fk_cuda.BWD_LAUNCHES,
+            "trunk": trunk_cuda.TRUNK_LAUNCHES}
+
+
+def phase_main(fk_cuda, trunk_cuda, device):
     """The README's single-frame FK-GAN command, 3 epochs at full width."""
     import torch
     from dhaug_torch import run_fk_gan
@@ -151,12 +254,11 @@ def phase_main(fk_cuda, device):
     args = MAIN_ARGS + ["--data_root", str(REPO),
                         "--checkpoint", str(REPO / "_runs" / "chip_smoke")]
     torch.cuda.reset_peak_memory_stats(device)
-    fk_cuda.FWD_LAUNCHES = 0
-    fk_cuda.BWD_LAUNCHES = 0
+    reset_counts(fk_cuda, trunk_cuda)
     t0 = time.perf_counter()
     result = run_fk_gan.main(args)
     seconds = time.perf_counter() - t0
-    launches = {"fwd": fk_cuda.FWD_LAUNCHES, "bwd": fk_cuda.BWD_LAUNCHES}
+    launches = read_counts(fk_cuda, trunk_cuda)
 
     scores = result["scores"]
     metrics = {f"{s}_{k}": scores[s][k] for s in ("h36m", "dhp") for k in ("p1", "p2")}
@@ -173,6 +275,12 @@ def phase_main(fk_cuda, device):
     for k, v in result["epoch_scalars"].items():
         if not all(math.isfinite(x) for x in v):
             raise AssertionError(f"GAN scalar {k} not finite: {v}")
+    # --snapshot 2 takes the full-state snapshot after epoch 1; the best
+    # posenet saves follow the first evaluation
+    run_dir = Path(result["run_dir"])
+    for name in ("ckpt_resume_latest.ckpt", "ckpt_best_dhp_p1.ckpt", "ckpt_best_h36m_p1.ckpt"):
+        if not (run_dir / name).is_file():
+            raise AssertionError(f"main path wrote no {name} in {run_dir}")
 
     # bone-length canary on the trained generator: FK must reproduce the
     # (unscaled) bone lengths it was given
@@ -183,8 +291,9 @@ def phase_main(fk_cuda, device):
     bl_err = float((bone_lengths_fk(pose) - bl).abs().max())
     if not (pose.shape == (256, 16, 3) and bl_err <= 1e-5):
         raise AssertionError(f"generated poses: shape {tuple(pose.shape)}, bone err {bl_err}")
-    emit({"phase": "main", "bone_length_canary_max_err_m": bl_err})
-    return launches, gan
+    emit({"phase": "main", "bone_length_canary_max_err_m": bl_err,
+          "checkpoints": sorted(p.name for p in run_dir.glob("ckpt_*"))})
+    return launches, gan, run_dir
 
 
 def phase_profile(gan, device, iters: int = 10):
@@ -241,6 +350,74 @@ def phase_profile(gan, device, iters: int = 10):
                                              for e in top]})
 
 
+def phase_synth(fk_cuda, trunk_cuda, run_dir: Path, device):
+    """Bulk synthesis from the main phase's snapshot through the CLI, then
+    the synthesis body alone at B = 8192."""
+    import numpy as np
+    import torch
+    from dhaug_torch import synthesize_dataset
+    from dhaug_torch.models.generator import GeneratorConfig
+    from dhaug_torch.ops.bones import bone_lengths_fk
+    from dhaug_torch.ops.fk import CANONICAL_BONE_LEN
+    from dhaug_torch.parallel.sharded import make_sharded_synthesizer
+    from dhaug_torch.utils.checkpoint import load_snapshot
+
+    snapshot = run_dir / "ckpt_resume_latest.ckpt"
+    out = REPO / "_runs" / "chip_smoke" / "dh_synth.npz"
+    reset_counts(fk_cuda, trunk_cuda)
+    result = synthesize_dataset.main([
+        "--ckpt", str(snapshot), "--n_poses", str(SYNTH_POSES), "--batch", str(SYNTH_B),
+        "--Gen_DenseDim", str(SYNTH_D), "--device", "cuda", "--out", str(out)])
+    launches = read_counts(fk_cuda, trunk_cuda)
+    n_batches = SYNTH_POSES // SYNTH_B
+    if launches["trunk"] != n_batches or launches["fwd"] != n_batches:
+        raise AssertionError(f"synthesis of {n_batches} batches launched {launches}")
+
+    saved = load_snapshot(str(snapshot))["gen_state"]["model"]
+    loaded = result["generator"].state_dict()
+    if list(saved) != list(loaded) or not all(torch.equal(loaded[k].cpu(), v)
+                                              for k, v in saved.items()):
+        raise AssertionError("the synthesizer's generator differs from the snapshot's")
+
+    data = np.load(out)
+    shapes = {k: data[k].shape for k in ("pose3d", "pose2d", "cam")}
+    if shapes != {"pose3d": (SYNTH_POSES, 16, 3), "pose2d": (SYNTH_POSES, 16, 2),
+                  "cam": (SYNTH_POSES, 9)} or int(data["n_devices"]) != 1:
+        raise AssertionError(f"npz shapes {shapes}, n_devices {data['n_devices']}")
+    if not all(np.isfinite(data[k]).all() for k in shapes):
+        raise AssertionError("npz holds non-finite values")
+    # the camera is rigid: each bone keeps its scaled length, within
+    # [0.8, 1.2) of the generator's input lengths; the thorax is never scaled
+    lengths = bone_lengths_fk(torch.from_numpy(data["pose3d"]))
+    bl = torch.tensor(CANONICAL_BONE_LEN, dtype=torch.float32)
+    lo, hi = SCALER_RANGE
+    below = float((lo * bl - lengths).max())
+    above = float((lengths - hi * bl).max())
+    thorax = float((lengths[:, 7] - bl[7]).abs().max())
+    if below > BONE_ATOL or above >= 0 or thorax > BONE_ATOL:
+        raise AssertionError(f"bone lengths outside the scaler range: {below} m below, "
+                             f"{above} m above, thorax off by {thorax} m")
+
+    # the body alone (noise -> B3 -> scalers -> B1) at B = 8192, and its parts
+    synthesize = make_sharded_synthesizer(GeneratorConfig(dense_dim=SYNTH_D))
+    ops = trunk_cuda.trunk_weights(result["generator"])
+    bone_len = bl.to(device).expand(SYNTH_B, 15).contiguous()
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    body_ms = cuda_time_ms(lambda: synthesize(ops, bone_len, g), iters=50, warmup=5)
+    noise = torch.randn(SYNTH_B, 128, device=device)
+    trunk_ms = cuda_time_ms(lambda: trunk_cuda.trunk_forward_cuda(ops, noise), iters=50)
+    ang, fbl, grot, root, _ = fk_inputs(SYNTH_B, seed=11, device=device)
+    fk_ms = cuda_time_ms(lambda: fk_cuda.fk_forward_cuda(ang, fbl, grot, root), iters=50)
+    emit({"phase": "synth", "launches": launches, "cli_poses": result["n_poses"],
+          "cli_seconds": result["seconds"], "cli_poses_per_s": result["poses_per_s"],
+          "body_ms_at_8192": body_ms, "body_poses_per_s": SYNTH_B / body_ms * 1e3,
+          "trunk_ms_at_8192": trunk_ms, "fk_fwd_ms_at_8192": fk_ms,
+          "trunk_share_of_body": trunk_ms / body_ms, "fk_share_of_body": fk_ms / body_ms,
+          "bone_len_below_m": below, "bone_len_above_m": above, "thorax_err_m": thorax})
+    return launches
+
+
 def main() -> int:
     if not (REPO / "dhaug_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the dhaug_torch package is not beside this script",
@@ -261,29 +438,45 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    from dhaug_torch.models import trunk_cuda
+    from dhaug_torch.ops import cuda_lib
     from dhaug_torch.ops import fk as fk_plain
     from dhaug_torch.ops import fk_cuda
     t0 = time.perf_counter()
-    fk_cuda.build()
-    ptxas = [line.strip() for line in fk_cuda.BUILD_INFO["ptxas"].splitlines()
-             if "registers" in line or "spill" in line or "Compiling entry" in line]
+    cuda_lib.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": fk_cuda.BUILD_INFO["seconds"], "ptxas": ptxas})
+          "nvcc_seconds": {k: v["seconds"] for k, v in cuda_lib.BUILD_INFO.items()},
+          "ptxas": [line.strip() for info in cuda_lib.BUILD_INFO.values()
+                    for line in info["ptxas"].splitlines()
+                    if "registers" in line or "spill" in line or "Compiling entry" in line
+                    or "smem" in line]})
 
     fwd_err, bwd_err, times, fwd_bound, bwd_bound = phase_kernels(fk_plain, fk_cuda, device)
-    launches, gan = phase_main(fk_cuda, device)
+    trunk_err, trunk_times, trunk_bound = phase_trunk_kernel(trunk_cuda, device)
+    main_launches, gan, run_dir = phase_main(fk_cuda, trunk_cuda, device)
     phase_profile(gan, device)
+    synth_launches = phase_synth(fk_cuda, trunk_cuda, run_dir, device)
 
+    by_path = lambda key: {"main": main_launches[key], "synth": synth_launches[key]}
     source = "dhaug_torch/csrc/fk_kernels.cu"
     kernels = [
         {"name": "fk_forward_kernel", "route": "cuda", "source": source,
-         "replaces": "dhaug_tpu/ops/fk_pallas.py:105", "launches": launches["fwd"],
+         "replaces": "dhaug_tpu/ops/fk_pallas.py:105", "launches": main_launches["fwd"],
+         "launches_by_path": by_path("fwd"),
          "max_abs_err": fwd_err, "ms": times["fwd_ms"], "plain_ms": times["fwd_plain_ms"],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "fk_backward_kernel", "route": "cuda", "source": source,
-         "replaces": "dhaug_tpu/ops/fk_pallas.py:355", "launches": launches["bwd"],
+         "replaces": "dhaug_tpu/ops/fk_pallas.py:355", "launches": main_launches["bwd"],
+         "launches_by_path": by_path("bwd"),
          "max_abs_err": bwd_err, "ms": times["bwd_ms"], "plain_ms": times["bwd_plain_ms"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
+        {"name": "trunk_layer_kernel", "route": "cuda",
+         "source": "dhaug_torch/csrc/trunk_kernels.cu",
+         "replaces": "dhaug_tpu/models/trunk_pallas.py:52", "launches": synth_launches["trunk"],
+         "launches_by_path": by_path("trunk"),
+         "max_abs_err": trunk_err, "ms": trunk_times["ms"], "plain_ms": trunk_times["plain_ms"],
+         "bound_ms": trunk_bound[0], "bound_by": trunk_bound[1],
+         "library_ms": trunk_times["library_ms"]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,4 +1,5 @@
-"""dhaug_torch: the PyTorch/CUDA port of DH-AUG's single-frame FK-GAN training.
+"""dhaug_torch: the PyTorch/CUDA port of DH-AUG's single-frame FK-GAN training
+(with checkpoints and resume) and of its bulk pose synthesis.
 
 The package mirrors ``dhaug_tpu``'s module names (``ops.fk``, ``gan.wgan``,
 ``train.posenet``, ...) so each piece has an obvious counterpart, but imports

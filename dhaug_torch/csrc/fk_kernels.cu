@@ -1,6 +1,6 @@
 // CUDA kernels of the DH forward kinematics (B1) and its VJP (B2), with a
-// plain C interface for ctypes (dhaug_torch/ops/fk_cuda.py builds and binds
-// them; no PyTorch headers).
+// plain C interface for ctypes (dhaug_torch/ops/cuda_lib.py builds them,
+// dhaug_torch/ops/fk_cuda.py binds them; no PyTorch headers).
 //
 // B1 fk_forward_kernel replaces dhaug_tpu/ops/fk_pallas.py::_fk_kernel
 //    (fk_pallas.py:105-161, launched by fk_world_pose_pallas).

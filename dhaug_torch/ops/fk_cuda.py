@@ -4,10 +4,9 @@ The kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/fk_kernels.cu``,
 per-pose math in ``csrc/fk_chain.cuh``).  They replace the Pallas kernels
 ``dhaug_tpu/ops/fk_pallas.py::_fk_kernel`` and ``::_fk_bwd_kernel``.
 
-Build: at first use ``nvcc`` compiles the sources in this checkout into a
-shared library with a plain C interface under ``dhaug_torch/_build/<hash>/``
-(the hash covers the sources and flags), and ``ctypes`` loads it.  Nothing is
-built at import time.
+Build: ``ops/cuda_lib.py`` compiles ``csrc/fk_kernels.cu`` with ``nvcc`` at
+first use into a shared library with a plain C interface, and ``ctypes``
+loads it.  Nothing is built at import time.
 
 Routing: :func:`fk_world_pose_16` takes the plain PyTorch FK (``ops/fk.py``)
 for CPU tensors only.  For CUDA tensors it launches the kernels or raises;
@@ -20,74 +19,23 @@ nowhere else, so a run can show that its FK went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from dhaug_torch.ops import cuda_lib
 from dhaug_torch.ops import fk as fk_plain
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_ROOT = _PKG / "_build"
-SOURCES = ("fk_kernels.cu", "fk_chain.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 _LIB = None
-# filled by build(): library path, seconds spent in nvcc (0.0 when the
-# library was already built), and ptxas' register/spill report
-BUILD_INFO: dict = {}
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the FK kernels need the CUDA toolkit")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernels (once per source hash) and return the library."""
-    digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
-    lib = out_dir / "libdhfk.so"
-    report = out_dir / "ptxas.txt"
-    seconds = 0.0
-    if not lib.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libdhfk.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "fk_kernels.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        report.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    BUILD_INFO.update(library=str(lib), seconds=seconds,
-                      ptxas=report.read_text() if report.exists() else "")
-    return lib
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_lib.load("fk_kernels")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dhfk_forward.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.dhfk_forward.restype = ci
@@ -99,22 +47,6 @@ def _lib():
     return _LIB
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.dhfk_error_string(rc).decode()}")
-
-
 def fk_forward_cuda(angles, bone_len, global_rot, root) -> torch.Tensor:
     """B1: (B, 33), (B, 15), (B, 3), (B, 3) float32 CUDA -> (B, 16, 3)."""
     global FWD_LAUNCHES
@@ -124,7 +56,7 @@ def fk_forward_cuda(angles, bone_len, global_rot, root) -> torch.Tensor:
     B = angles.shape[0]
     for name, t, n in (("angles", angles, 33), ("bone_len", bone_len, 15),
                        ("global_rot", global_rot, 3), ("root", root, 3)):
-        _check(name, t, (B, n), device)
+        cuda_lib.check_tensor(name, t, (B, n), torch.float32, device)
     out = torch.empty((B, 16, 3), dtype=torch.float32, device=device)
     if B == 0:
         return out
@@ -134,7 +66,7 @@ def fk_forward_cuda(angles, bone_len, global_rot, root) -> torch.Tensor:
         rc = lib.dhfk_forward(angles.data_ptr(), bone_len.data_ptr(),
                               global_rot.data_ptr(), root.data_ptr(),
                               out.data_ptr(), B, stream)
-    _raise_on(lib, rc, "fk_forward_kernel")
+    cuda_lib.raise_on(lib.dhfk_error_string, rc, "fk_forward_kernel")
     FWD_LAUNCHES += 1
     return out
 
@@ -149,7 +81,7 @@ def fk_backward_cuda(angles, bone_len, global_rot, g):
     B = angles.shape[0]
     for name, t, shape in (("angles", angles, (B, 33)), ("bone_len", bone_len, (B, 15)),
                            ("global_rot", global_rot, (B, 3)), ("g", g, (B, 16, 3))):
-        _check(name, t, shape, device)
+        cuda_lib.check_tensor(name, t, shape, torch.float32, device)
     outs = [torch.empty((B, n), dtype=torch.float32, device=device)
             for n in (33, 15, 3, 3)]
     if B == 0:
@@ -160,7 +92,7 @@ def fk_backward_cuda(angles, bone_len, global_rot, g):
         rc = lib.dhfk_backward(angles.data_ptr(), bone_len.data_ptr(),
                                global_rot.data_ptr(), g.data_ptr(),
                                *[o.data_ptr() for o in outs], B, stream)
-    _raise_on(lib, rc, "fk_backward_kernel")
+    cuda_lib.raise_on(lib.dhfk_error_string, rc, "fk_backward_kernel")
     BWD_LAUNCHES += 1
     return tuple(outs)
 

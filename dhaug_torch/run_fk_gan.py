@@ -4,7 +4,11 @@ Port of ``run_Fk_GAN.py:24-263`` for the ``--data_enhancement_method GAN
 --single_or_multi_train_mode single --posenet_name mlp`` branch.  Each epoch:
 re-skin the real training poses -> GAN epoch (critics every iteration,
 generator every 5th) -> posenet pass on the fakes -> evaluation ('_fake') ->
-posenet pass on the real data -> evaluation ('_real') -> LR step.
+posenet pass on the real data -> evaluation ('_real') -> LR step -> the
+best-posenet checkpoints (``ckpt_best_dhp_p1.ckpt``,
+``ckpt_best_h36m_p1.ckpt``) and, every ``--snapshot`` epochs, the full-state
+``ckpt_resume_latest.ckpt`` that ``--resume`` (or ``--GAN_resume``) continues
+from and ``python -m dhaug_torch.synthesize_dataset --ckpt`` samples from.
 
     python -m dhaug_torch.run_fk_gan --posenet_name mlp --lr_p 1e-3 \\
         --keypoints gt --batch_size 1024 \\
@@ -12,8 +16,14 @@ posenet pass on the real data -> evaluation ('_real') -> LR step.
 
 Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
 card raises.  Flags that need code not ported yet are refused with an error
-(other modes and posenets, resume, picture dumps, multi-device).  This slice
-writes ``log.txt`` and ``metrics.jsonl`` but no checkpoints.
+(other modes and posenets, ``--evaluate``, the orbax format, picture dumps,
+multi-device).  Besides the checkpoints the run writes ``log.txt`` and
+``metrics.jsonl``.
+
+A snapshot resumes bit for bit on the device type that wrote it.  Resumed on
+the other type, the weights, optimizer states and numpy stream carry over,
+but the ``torch.Generator`` stream cannot (its state differs between CPU and
+CUDA): it is seeded from ``--random_seed`` and the epoch instead.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from dhaug_torch.train.data_prep import prepare_data, train_subject_list
 from dhaug_torch.train.posenet import evaluate_both, train_epoch
 from dhaug_torch.train.runners import make_logger, make_run_dir, write_eval_scalars
 from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
+from dhaug_torch.utils.checkpoint import load_snapshot, restore_into, save_ckpt, save_snapshot
 
 
 def _refuse_unported(args) -> None:
@@ -43,9 +54,10 @@ def _refuse_unported(args) -> None:
         unported.append(f"--single_or_multi_train_mode {args.single_or_multi_train_mode}")
     if args.posenet_name != "mlp":
         unported.append(f"--posenet_name {args.posenet_name}")
-    for flag in ("resume", "GAN_resume", "evaluate"):
-        if getattr(args, flag):
-            unported.append(f"--{flag}")
+    if args.evaluate:
+        unported.append("--evaluate")
+    if args.ckpt_format != "pickle":
+        unported.append(f"--ckpt_format {args.ckpt_format}")
     for flag in ("pretrain", "record_all_picture", "synthetic_data", "bf16_trunk"):
         if getattr(args, flag):
             unported.append(f"--{flag} true")
@@ -57,9 +69,20 @@ def _refuse_unported(args) -> None:
             + " (the JAX package's run_Fk_GAN.py has them)")
 
 
+def _net_state(net: torch.nn.Module, opt: torch.optim.Optimizer) -> dict:
+    """A net and its optimizer, as a snapshot holds them."""
+    return {"model": net.state_dict(), "opt": opt.state_dict()}
+
+
+def _restore_net(net: torch.nn.Module, opt: torch.optim.Optimizer, saved: dict) -> None:
+    restore_into(net, saved["model"])
+    opt.load_state_dict(saved["opt"])
+
+
 def main(argv=None) -> dict:
     """Run the training; returns the final scores, the per-epoch wall
-    seconds, the per-epoch GAN scalars and the trained GAN."""
+    seconds, the per-epoch GAN scalars, the run directory, the trained GAN,
+    the posenet with its optimizer, and the torch.Generator."""
     args = parse_aug_args(argv)
     _refuse_unported(args)
     device = dhaug_torch.resolve_device(args.device)
@@ -92,8 +115,43 @@ def main(argv=None) -> dict:
 
     scores = {"h36m": {"p1": 0, "p2": 0}, "dhp": {"p1": 0, "p2": 0, "pck": 0, "auc": 0}}
     lr_now = 0.0
+    dhpp1_best = None
+    s911p1_best = None
+    start_epoch = 0
+    nets = {"pos_state": (posenet, pos_opt), "gen_state": (gan.gen, gan.gen_opt),
+            "d3d_state": (gan.d3d, gan.d3d_opt), "d2d_state": (gan.d2d, gan.d2d_opt)}
+
+    # full-state resume (run_Fk_GAN.py:96-116)
+    resume_path = args.resume or args.GAN_resume
+    if resume_path:
+        saved = load_snapshot(resume_path)
+        for key, (net, opt) in nets.items():
+            _restore_net(net, opt, saved[key])
+        summary.load_state_dict(saved["summary"])
+        np_rng.bit_generator.state = saved["np_rng"]
+        start_epoch = int(saved["epoch"]) + 1
+        summary.epoch = start_epoch  # the snapshot is taken pre-increment
+        if saved["torch_rng"]["device"] == device.type:
+            generator.set_state(saved["torch_rng"]["state"])
+        else:
+            generator.manual_seed(args.random_seed + start_epoch)
+            print(f"==> the snapshot's torch.Generator stream is for "
+                  f"{saved['torch_rng']['device']}; reseeded for {device.type}")
+        lr_now = float(saved["lr_now"])
+        dhpp1_best = saved["dhpp1_best"]
+        s911p1_best = saved["s911p1_best"]
+        print(f"==> Resumed from {resume_path} at epoch {start_epoch}")
+
+    def full_state_ckpt(now_epoch: int) -> dict:
+        state = {"epoch": now_epoch, "lr_now": lr_now,
+                 "dhpp1_best": dhpp1_best, "s911p1_best": s911p1_best,
+                 "summary": summary.state_dict(), "np_rng": np_rng.bit_generator.state,
+                 "torch_rng": {"device": device.type, "state": generator.get_state()}}
+        state.update({key: _net_state(net, opt) for key, (net, opt) in nets.items()})
+        return state
+
     epoch_seconds = []
-    for now_epoch in range(args.epochs + args.additional_train_epoch):
+    for now_epoch in range(start_epoch, args.epochs + args.additional_train_epoch):
         t0 = time.perf_counter()
         gt2d3d = reskin_dataset(bundle.train_gt2d3d, templates, np_rng, device)
         fake_ds = run_gan_epoch(gan, gt2d3d, PoseTarget(gt2d3d.poses_2d),
@@ -125,6 +183,22 @@ def main(argv=None) -> dict:
         h36m, dhp = scores["h36m"], scores["dhp"]
         logger.append([summary.epoch, lr_now, h36m["p1"], h36m["p2"], dhp["p1"], dhp["p2"],
                        dhp.get("pck", 0), dhp.get("auc", 0)])
+
+        # best-posenet checkpoints (run_Fk_GAN.py:238-249); the state_dict
+        # carries the BatchNorm running statistics
+        ckpt = {"epoch": summary.epoch, "model_pos": posenet.state_dict(),
+                "posenet_name": args.posenet_name}
+        if dhp["p1"] and (dhpp1_best is None or dhpp1_best > dhp["p1"]):
+            dhpp1_best = dhp["p1"]
+            logger.record_args(f"==> Saving checkpoint at epoch '{summary.epoch}', "
+                               f"with dhp_p1 {dhpp1_best}")
+            save_ckpt(ckpt, run_dir, suffix="best_dhp_p1")
+        if h36m["p1"] and (s911p1_best is None or s911p1_best > h36m["p1"]):
+            s911p1_best = h36m["p1"]
+            save_ckpt(ckpt, run_dir, suffix="best_h36m_p1")
+        if (summary.epoch + 1) % max(args.snapshot, 1) == 0:
+            save_snapshot(full_state_ckpt(now_epoch), run_dir, suffix="resume_latest",
+                          fmt=args.ckpt_format)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         epoch_seconds.append(time.perf_counter() - t0)
@@ -136,7 +210,7 @@ def main(argv=None) -> dict:
     summary.close()
     return {"scores": scores, "epoch_seconds": epoch_seconds,
             "epoch_scalars": summary.epoch_scalar_history, "run_dir": run_dir,
-            "gan": gan}
+            "gan": gan, "posenet": posenet, "pos_opt": pos_opt, "generator": generator}
 
 
 if __name__ == "__main__":

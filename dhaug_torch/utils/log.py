@@ -1,7 +1,7 @@
 """Run logging: the tab-separated ``log.txt``, the scalar stream, counters.
 
 Port of ``dhaug_tpu/utils/log.py``'s ``Logger``, ``MetricsWriter`` and
-``Summary``.  ``log.txt`` has the JAX package's schema: the args dump, the
+``Summary`` (with its ``state_dict``/``load_state_dict`` for resume).  ``log.txt`` has the JAX package's schema: the args dump, the
 header row, then one row per logged epoch.  Scalars go to
 ``metrics.jsonl`` under the reference's TensorBoard tags; this port writes
 no TensorBoard event files (importing ``torch.utils.tensorboard`` can pull in
@@ -79,6 +79,25 @@ class Summary:
     def create_summary(self) -> MetricsWriter:
         self.writer = MetricsWriter(self.directory)
         return self.writer
+
+    _COUNTERS = ("epoch", "train_iter_num", "train_fakepose_iter_num",
+                 "train_discrim_iter_num")
+
+    def state_dict(self) -> dict:
+        """The counters and the scalar history, for a resume snapshot."""
+        d = {k: getattr(self, k) for k in self._COUNTERS}
+        d["epoch_scalar_history"] = {k: list(v) for k, v in self.epoch_scalar_history.items()}
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        for k, v in d.items():
+            if k == "epoch_scalar_history":
+                self.epoch_scalar_history = {kk: [float(x) for x in vv]
+                                             for kk, vv in dict(v).items()}
+            elif k in self._COUNTERS:
+                setattr(self, k, int(v))
+            else:
+                raise ValueError(f"unknown summary counter {k!r}")
 
     def close(self):
         if self.writer is not None:

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from dhaug_torch.models import trunk_cuda
+from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
 from dhaug_torch.ops import fk as fk_plain
 from dhaug_torch.ops import fk_cuda
 
@@ -95,3 +97,57 @@ def test_short_training_run_launches_both_kernels(device, tmp_path):
     assert fk_cuda.FWD_LAUNCHES - f0 == 18 + 3
     assert fk_cuda.BWD_LAUNCHES - b0 == 3
     assert all(np.isfinite(v) for v in out["scores"]["h36m"].values())
+
+
+def _trunk(dense, device, seed=0):
+    torch.manual_seed(seed)
+    return trunk_cuda.trunk_weights(FkGeneratorNet(GeneratorConfig(dense_dim=dense)).to(device))
+
+
+@pytest.mark.parametrize("dense,B", [(1000, 8192), (1000, 1000), (1000, 1), (40, 1000)])
+def test_trunk_kernel_matches_plain(device, dense, B):
+    """B3 against the plain bf16 trunk, to the bf16-level rule of
+    trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR."""
+    ops = _trunk(dense, device)
+    noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
+                            dtype=torch.float32, device=device)
+    n0 = trunk_cuda.TRUNK_LAUNCHES
+    out = trunk_cuda.trunk_forward_cuda(ops, noise)
+    torch.cuda.synchronize()
+    assert trunk_cuda.TRUNK_LAUNCHES == n0 + 1
+    assert out.shape == (B, 35) and bool(torch.isfinite(out).all())
+    max_err, mean_err = trunk_cuda.trunk_errors(out, trunk_cuda.trunk_reference_bf16(ops, noise))
+    assert max_err <= trunk_cuda.TRUNK_MAX_ERR and mean_err <= trunk_cuda.TRUNK_MEAN_ERR
+
+
+def test_trunk_wrapper_rejects_bad_tensors(device):
+    ops = _trunk(40, device)
+    noise = torch.randn(8, 128, device=device)
+    with pytest.raises(ValueError, match="dtype"):
+        trunk_cuda.trunk_forward_cuda(ops, noise.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        trunk_cuda.trunk_forward_cuda(ops, torch.cat([noise, noise], 1)[:, ::2])
+    with pytest.raises(ValueError, match="16-byte"):
+        trunk_cuda.trunk_forward_cuda(ops, torch.randn(8 * 128 + 1, device=device)[1:]
+                                      .view(8, 128))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        trunk_cuda.trunk_forward_cuda(ops, noise.cpu())
+    with pytest.raises(ValueError, match="operand 1: on cpu"):
+        trunk_cuda.trunk_forward_cuda((ops[0], ops[1].cpu()) + ops[2:], noise)
+    with pytest.raises(ValueError, match="multiples of 32"):  # an unpadded width
+        trunk_cuda.trunk_forward_cuda((ops[0][:40].contiguous(),) + ops[1:], noise)
+    with pytest.raises(ValueError, match="operand 2: dtype"):
+        trunk_cuda.trunk_forward_cuda(ops[:2] + (ops[2].float(),) + ops[3:], noise)
+
+
+def test_short_synthesis_run_launches_both_kernels(device, tmp_path):
+    from dhaug_torch import synthesize_dataset
+    f0, t0 = fk_cuda.FWD_LAUNCHES, trunk_cuda.TRUNK_LAUNCHES
+    result = synthesize_dataset.main([
+        "--device", "cuda", "--random_init", "true", "--Gen_DenseDim", "64",
+        "--n_poses", "1000", "--batch", "256", "--out", str(tmp_path / "s.npz")])
+    # 1000 poses in batches of 256: 4 batches, one trunk and one FK each
+    assert (fk_cuda.FWD_LAUNCHES - f0, trunk_cuda.TRUNK_LAUNCHES - t0) == (4, 4)
+    data = np.load(tmp_path / "s.npz")
+    assert data["pose3d"].shape == (1000, 16, 3) and np.isfinite(data["pose3d"]).all()
+    assert result["n_poses"] == 1000

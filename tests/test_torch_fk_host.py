@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from dhaug_torch.ops import fk as t_fk
-from dhaug_torch.ops.fk_cuda import CSRC
+from dhaug_torch.ops.cuda_lib import CSRC
 
 _HOST_LOOP = r"""
 #include "fk_chain.cuh"

@@ -1,0 +1,139 @@
+"""Bulk synthesis in the port (dhaug_torch/parallel/sharded.py and
+``python -m dhaug_torch.synthesize_dataset``) on the CPU, held to the JAX
+chain of scripts/synthesize_dataset.py on injected draws.
+
+Tolerance of the chain: the heads agree to fp32 summation order (see
+tests/test_torch_trunk.py), and FK and the camera run in fp32 on both
+sides.  The generator's root (up to 10 m) and the camera's translation put
+coordinates at up to ~20 m, where one fp32 ulp is 1.9e-6 m; measured at
+most 6.7e-6 m (cam3d) and 3.8e-6 (normalized 2D), intrinsics exact.  Held
+to 1e-5 absolute plus 1e-6 relative (about 8 fp32 ulps of the value).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dhaug_torch import synthesize_dataset
+from dhaug_torch.gan.wgan import camera_bank
+from dhaug_torch.models import convert, trunk_cuda
+from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
+from dhaug_torch.ops import fk_cuda
+from dhaug_torch.ops.bones import bone_lengths_fk
+from dhaug_torch.ops.fk import CANONICAL_BONE_LEN
+from dhaug_torch.parallel.sharded import make_sharded_synthesizer
+from dhaug_torch.utils.checkpoint import save_snapshot
+from dhaug_tpu.gan.wgan import camera_bank as j_camera_bank
+from dhaug_tpu.models import generator as j_gen
+from dhaug_tpu.models.trunk_pallas import trunk_forward_pallas
+from dhaug_tpu.ops.camera import project_to_2d as j_project, world_to_camera_batch as j_w2c
+
+TOL = 1e-5
+RTOL = 1e-6
+SUBJECTS = ["S1", "S5", "S6", "S7", "S8"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These runs are too small to gain from torch's intra-op threads, and
+    under a parallel test run those threads oversubscribe the cores and
+    slow every process on them; the setting is restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_synthesis_body_matches_the_jax_chain():
+    dense, B = 48, 64
+    rng = np.random.default_rng(0)
+    net = j_gen.FkGeneratorNet(j_gen.GeneratorConfig(dense_dim=dense))
+    params = net.init(jax.random.PRNGKey(0), jnp.zeros((2, 128)))["params"]
+    port = convert.load_generator(FkGeneratorNet(GeneratorConfig(dense_dim=dense)),
+                                  jax.tree.map(np.asarray, params))
+    noise = rng.normal(size=(B, 128)).astype(np.float32)
+    scaler8 = (rng.integers(-200, 200, (B, 8)) / 1000.0).astype(np.float32)
+    bone_len = rng.uniform(0.1, 0.6, (B, 15)).astype(np.float32)
+    cam_idx = 13
+
+    head = trunk_forward_pallas(params, jnp.asarray(noise), interpret=True)
+    pose = j_gen.synthesize_poses(head, jnp.asarray(bone_len), jnp.asarray(scaler8),
+                                  j_gen.GeneratorConfig(dense_dim=dense))
+    quats, trans, intrs = j_camera_bank(SUBJECTS)
+    cam3d = j_w2c(pose, quats[cam_idx][None], trans[cam_idx][None])
+    intr = jnp.broadcast_to(intrs[cam_idx][None], (B, 9))
+    pose2d = j_project(cam3d, intr)
+
+    synthesize = make_sharded_synthesizer(GeneratorConfig(dense_dim=dense))
+    got = synthesize_dataset.synth_pairs(
+        synthesize, trunk_cuda.trunk_weights(port), torch.from_numpy(bone_len),
+        camera_bank(SUBJECTS), None, noise=torch.from_numpy(noise),
+        scaler8=torch.from_numpy(scaler8), cam_idx=cam_idx)
+    for g, r in zip(got, (cam3d, pose2d, intr)):
+        assert tuple(g.shape) == tuple(r.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL, rtol=RTOL)
+
+
+def _canonical():
+    return torch.tensor(CANONICAL_BONE_LEN, dtype=torch.float32)
+
+
+def test_cpu_run_writes_the_jax_npz(tmp_path):
+    out = tmp_path / "dh_synth.npz"
+    f0, t0 = fk_cuda.FWD_LAUNCHES, trunk_cuda.TRUNK_LAUNCHES
+    result = synthesize_dataset.main([
+        "--device", "cpu", "--random_init", "true", "--Gen_DenseDim", "32",
+        "--n_poses", "300", "--batch", "128", "--out", str(out)])
+    assert (fk_cuda.FWD_LAUNCHES, trunk_cuda.TRUNK_LAUNCHES) == (f0, t0)  # CPU: no kernel
+    assert result["n_poses"] == 300 and result["poses_per_s"] > 0
+    data = np.load(out)
+    assert sorted(data.files) == ["cam", "n_devices", "pose2d", "pose3d", "seed"]
+    assert data["pose3d"].shape == (300, 16, 3) and data["pose3d"].dtype == np.float32
+    assert data["pose2d"].shape == (300, 16, 2)
+    assert data["cam"].shape == (300, 9)
+    assert int(data["seed"]) == 0 and int(data["n_devices"]) == 1
+    assert all(np.isfinite(data[k]).all() for k in ("pose3d", "pose2d", "cam"))
+    # the camera is rigid, so every bone keeps its scaled length: within
+    # the scaler range [0.8, 1.2) of the input, the thorax never scaled.
+    # In metres: fp32 camera coordinates reach ~20 m (ulp 1.9e-6 m), and
+    # a length is the difference of two of them (measured at most 6.0e-6 m
+    # over 65536 poses)
+    lengths = bone_lengths_fk(torch.from_numpy(data["pose3d"]))
+    bl = _canonical()
+    assert bool((lengths >= 0.8 * bl - TOL).all() and (lengths < 1.2 * bl).all())
+    torch.testing.assert_close(lengths[:, 7], bl[7].expand(300), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["gen_state", "gen"])
+def test_ckpt_loads_the_snapshot_generator_exactly(tmp_path, layout):
+    torch.manual_seed(5)
+    net = FkGeneratorNet(GeneratorConfig(dense_dim=32))
+    state = {"model": net.state_dict()} if layout == "gen_state" else net.state_dict()
+    path = save_snapshot({"epoch": 1, layout: state}, str(tmp_path), suffix="resume_latest")
+    result = synthesize_dataset.main([
+        "--device", "cpu", "--ckpt", path, "--Gen_DenseDim", "32", "--n_poses", "20",
+        "--batch", "16", "--out", str(tmp_path / "s.npz")])
+    loaded = result["generator"].state_dict()
+    assert list(loaded) == list(net.state_dict())
+    assert all(torch.equal(loaded[k], v) for k, v in net.state_dict().items())
+
+
+@pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
+                                   ["--num_processes", "2"]])
+def test_multi_process_flags_are_refused(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        synthesize_dataset.main(["--device", "cpu", "--out", str(tmp_path / "s.npz")] + flags)
+
+
+def test_more_than_one_device_is_refused():
+    with pytest.raises(NotImplementedError, match="A16"):
+        make_sharded_synthesizer(GeneratorConfig(dense_dim=32), n_devices=2)
+
+
+def test_device_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthesize_dataset.main(["--random_init", "true", "--Gen_DenseDim", "32",
+                                 "--out", str(tmp_path / "s.npz")])
