@@ -12,8 +12,12 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 3. kernels -- holds each kernel to its plain PyTorch version on the card:
               the FK kernels B1/B2 at B = 1024 (the training path's batch),
               1000 (ragged) and 1, the trunk kernel B3 at D = 1000 and
-              B = 8192 (the synthesis batch), 1000 and 1; times kernel,
-              plain version and, for B3, a cuBLAS yardstick with CUDA events;
+              B = 8192 (the synthesis batch), 1000 and 1, and at D = 64,
+              B = 64 (one tile) and D = 256, B = 333 (ragged, several
+              tiles); times kernel, plain version and, for B3, a cuBLAS
+              yardstick with CUDA events; profiles B3's 8 launches at
+              B = 8192 and prints each layer's device time beside its own
+              FLOP and byte bound;
 4. main    -- runs ``dhaug_torch.run_fk_gan.main`` with the README's
               single-frame FK-GAN command at full width (generator and both
               critics 1000 wide, MLP posenet 1024 wide with 4 stages,
@@ -172,6 +176,24 @@ def trunk_bytes(B: int, D: int) -> float:
     return weights * 2 + (7 * D + 35) * 4 + B * 128 * 4 + B * 35 * 4
 
 
+TRUNK_LAYERS = ("prelude", "a1", "b1", "a2", "b2", "a3", "b3", "head")
+
+
+def trunk_layer_work(B: int, D: int) -> list:
+    """(FLOP, bytes) of each of B3's 8 launches: each layer's own inputs
+    read once and outputs written once, with the kernel's storage types
+    (fp32 noise, h and head; bf16 weights, y and h's shadow; fp32 biases).
+    The last layer b writes no fp32 h: only its shadow has a reader."""
+    w_hidden = 2 * D * D + 4 * D
+    work = [(2.0 * B * 128 * D, B * 128 * 4 + 2 * 128 * D + 4 * D + B * D * (4 + 2))]
+    for blk in range(3):
+        work.append((2.0 * B * D * D, 2 * B * D + w_hidden + 2 * B * D))
+        h_out = 4 * B * D if blk < 2 else 0
+        work.append((2.0 * B * D * D, 2 * B * D + 4 * B * D + w_hidden + h_out + 2 * B * D))
+    work.append((2.0 * B * D * 35, 2 * B * D + 2 * 35 * D + 4 * 35 + 4 * B * 35))
+    return work
+
+
 def library_trunk(ops_bf16, noise):
     """The yardstick: the same 8 layers as cuBLAS bf16 ``torch.addmm``
     calls with fp32 ReLU and residual between them.  Its outputs and biases
@@ -186,38 +208,78 @@ def library_trunk(ops_bf16, noise):
     return torch.addmm(b[7], h.to(torch.bfloat16), w[7].t()).float()
 
 
-def phase_trunk_kernel(trunk_cuda, device):
-    """B3 against the plain bf16 trunk at D = 1000, B = 8192, 1000, 1, to
-    the rule of trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR (max and mean
-    absolute error over the std of the head); then timings at B = 8192."""
-    import numpy as np
+def trunk_operands(trunk_cuda, D: int, device):
     import torch
     from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
-
     torch.manual_seed(0)
-    net = FkGeneratorNet(GeneratorConfig(dense_dim=SYNTH_D)).to(device)
-    ops = trunk_cuda.trunk_weights(net)
+    return trunk_cuda.trunk_weights(FkGeneratorNet(GeneratorConfig(dense_dim=D)).to(device))
+
+
+def profile_trunk_layers(trunk_cuda, ops, noise, calls: int = 5) -> list:
+    """Device time of each of B3's 8 launches at noise's batch, the median
+    over ``calls`` profiled trunk calls after warm-up, beside the layer's
+    own bound (torch.profiler's kernel events, in launch order)."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        trunk_cuda.trunk_forward_cuda(ops, noise)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            trunk_cuda.trunk_forward_cuda(ops, noise)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "trunk_gemm_kernel" in e.name), key=lambda e: e.time_range.start)
+    n = len(TRUNK_LAYERS)
+    if len(events) != n * calls:
+        raise AssertionError(f"profiled {len(events)} trunk_gemm_kernel launches, "
+                             f"expected {n * calls}")
+    rows = []
+    for i, ((flop, nbytes), name) in enumerate(zip(trunk_layer_work(noise.shape[0], SYNTH_D),
+                                                   TRUNK_LAYERS)):
+        us = statistics.median(events[c * n + i].time_range.elapsed_us() for c in range(calls))
+        bound = bound_ms(nbytes, flop, PEAK_BF16_FLOP_S)
+        rows.append({"layer": name, "device_us": us, "flop": flop, "bytes": nbytes,
+                     "bound_us": bound[0] * 1e3, "bound_by": bound[1],
+                     "tflop_per_s": flop / us / 1e6, "tb_per_s": nbytes / us / 1e6})
+    return rows
+
+
+def phase_trunk_kernel(trunk_cuda, device):
+    """B3 against the plain bf16 trunk at D = 1000, B = 8192, 1000, 1 and
+    at D = 64, B = 64 and D = 256, B = 333, to the rule of
+    trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR (max and mean absolute error
+    over the std of the head); then timings and the per-layer profile at
+    B = 8192."""
+    import numpy as np
+    import torch
+
     max_abs = 0.0
-    for B in (SYNTH_B, 1000, 1):
+    for D, B in ((SYNTH_D, SYNTH_B), (SYNTH_D, 1000), (SYNTH_D, 1), (64, 64), (256, 333)):
+        case_ops = trunk_operands(trunk_cuda, D, device)
         noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
                                 dtype=torch.float32, device=device)
-        got = trunk_cuda.trunk_forward_cuda(ops, noise)
+        got = trunk_cuda.trunk_forward_cuda(case_ops, noise)
         torch.cuda.synchronize()
-        ref = trunk_cuda.trunk_reference_bf16(ops, noise)
+        ref = trunk_cuda.trunk_reference_bf16(case_ops, noise)
         max_rel, mean_rel = trunk_cuda.trunk_errors(got, ref)
         err = float((got - ref).abs().max())
-        emit({"phase": "kernels", "kernel": "trunk", "D": SYNTH_D, "B": B,
+        emit({"phase": "kernels", "kernel": "trunk", "D": D, "B": B,
               "max_abs_err": err, "max_err_over_std": max_rel,
               "mean_err_over_std": mean_rel})
         if not (got.shape == (B, 35) and bool(torch.isfinite(got).all())
                 and max_rel <= trunk_cuda.TRUNK_MAX_ERR
                 and mean_rel <= trunk_cuda.TRUNK_MEAN_ERR):
             raise AssertionError(
-                f"trunk kernel B={B}: shape {tuple(got.shape)}, max/std {max_rel} "
+                f"trunk kernel D={D} B={B}: shape {tuple(got.shape)}, max/std {max_rel} "
                 f"(<= {trunk_cuda.TRUNK_MAX_ERR}), mean/std {mean_rel} "
                 f"(<= {trunk_cuda.TRUNK_MEAN_ERR})")
         max_abs = max(max_abs, err)
 
+    ops = trunk_operands(trunk_cuda, SYNTH_D, device)
     noise = torch.randn(SYNTH_B, 128, device=device)
     ops_bf16 = tuple(t.to(torch.bfloat16) for t in ops)
     times = {"ms": cuda_time_ms(lambda: trunk_cuda.trunk_forward_cuda(ops, noise), iters=100),
@@ -231,6 +293,9 @@ def phase_trunk_kernel(trunk_cuda, device):
                      "(not the same function)",
           "bound_ms": bound[0], "bound_by": bound[1],
           "tflop_per_s": trunk_flops(SYNTH_B, SYNTH_D) / times["ms"] / 1e9})
+    layers = profile_trunk_layers(trunk_cuda, ops, noise)
+    emit({"phase": "kernels", "kernel": "trunk", "D": SYNTH_D, "B": SYNTH_B,
+          "profiled_device_us_sum": sum(r["device_us"] for r in layers), "layers": layers})
     return max_abs, times, bound
 
 
@@ -470,7 +535,7 @@ def main() -> int:
          "launches_by_path": by_path("bwd"),
          "max_abs_err": bwd_err, "ms": times["bwd_ms"], "plain_ms": times["bwd_plain_ms"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
-        {"name": "trunk_layer_kernel", "route": "cuda",
+        {"name": "trunk_gemm_kernel", "route": "cuda",
          "source": "dhaug_torch/csrc/trunk_kernels.cu",
          "replaces": "dhaug_tpu/models/trunk_pallas.py:52", "launches": synth_launches["trunk"],
          "launches_by_path": by_path("trunk"),

@@ -10,7 +10,11 @@ adds: the precision of the TPU kernel and of XLA's default matmul there.
 * :func:`trunk_reference_bf16` -- the plain PyTorch version (CPU path,
   tests, and the kernel's yardstick on the card).
 * :func:`trunk_forward_cuda` -- the wrapper of kernel B3
-  (``csrc/trunk_kernels.cu``, built by ``ops/cuda_lib.py``).
+  (``csrc/trunk_kernels.cu``, built by ``ops/cuda_lib.py``): one
+  ``wgmma`` GEMM a layer, fed by TMA, whose epilogue stores every
+  activation that the next layer rounds to bf16 as bf16 (bound: operations,
+  0.102 ms at B = 8192, D = 1000 on an H100; the design is noted at the top
+  of the ``.cu`` file).
 * :func:`trunk_forward` -- CPU tensors to the plain version, CUDA tensors
   to the kernel or an error.  There is no fallback.
 
@@ -31,9 +35,13 @@ from dhaug_torch.models.generator import FkGeneratorNet
 from dhaug_torch.ops import cuda_lib
 
 TRUNK_LAUNCHES = 0
-# every K and the hidden width are zero-padded to a multiple of this
-# (the kernel steps K by 32; 64 keeps the rows 128-byte aligned)
+# every K and the hidden width are zero-padded to a multiple of this: the
+# kernel steps K by 64, one 128-byte row of its swizzled bf16 tiles
 PAD = 64
+# the prelude stages the whole fp32 noise row in its 4 ring stages of 64;
+# the head is one 48-wide tile
+MAX_NOISE_WIDTH = 256
+MAX_HEAD_WIDTH = 48
 N_OPERANDS = 16
 
 _LIB = None
@@ -116,7 +124,7 @@ def _lib():
     if _LIB is None:
         lib = cuda_lib.load("trunk_kernels")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dhtrunk_forward.argtypes = [ctypes.POINTER(vp), vp, vp, vp, vp,
+        lib.dhtrunk_forward.argtypes = [ctypes.POINTER(vp), vp, vp, vp, vp, vp,
                                         ci, ci, ci, ci, vp]
         lib.dhtrunk_forward.restype = ci
         lib.dhtrunk_error_string.argtypes = [ci]
@@ -127,9 +135,10 @@ def _lib():
 
 def trunk_forward_cuda(ops, noise: torch.Tensor) -> torch.Tensor:
     """B3 on the card: ``ops`` from :func:`trunk_weights` (hidden width a
-    multiple of 32), noise (B, K0) fp32 -> head (B, 35) fp32.  One call
+    multiple of 64), noise (B, K0) fp32 -> head (B, 35) fp32.  One call
     makes 8 device launches (one per layer) on the current stream and adds
-    1 to ``TRUNK_LAUNCHES``."""
+    1 to ``TRUNK_LAUNCHES``.  Scratch: h in fp32 (the residual), its bf16
+    shadow and y in bf16, each (B, D)."""
     global TRUNK_LAUNCHES
     device = noise.device
     if device.type != "cuda":
@@ -140,9 +149,10 @@ def trunk_forward_cuda(ops, noise: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"noise: shape {tuple(noise.shape)}, expected (B, K0)")
     B, k0 = noise.shape
     d, o = ops[0].shape[0], ops[-2].shape[0]
-    if k0 % 32 or d % 32:
-        raise ValueError(f"noise width {k0} and hidden width {d} must be multiples of 32 "
-                         "(prepare the operands with trunk_weights)")
+    if k0 % PAD or d % PAD or k0 > MAX_NOISE_WIDTH or o > MAX_HEAD_WIDTH:
+        raise ValueError(f"noise width {k0} and hidden width {d} must be multiples of {PAD}, "
+                         f"the noise width at most {MAX_NOISE_WIDTH} and the head width {o} "
+                         f"at most {MAX_HEAD_WIDTH} (prepare the operands with trunk_weights)")
     shapes = [(d, k0), (d,)] + [(d, d), (d,)] * 6 + [(o, d), (o,)]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
         dtype = torch.bfloat16 if i % 2 == 0 else torch.float32
@@ -152,14 +162,15 @@ def trunk_forward_cuda(ops, noise: torch.Tensor) -> torch.Tensor:
     if B == 0:
         return out
     h = torch.empty((B, d), dtype=torch.float32, device=device)
-    y = torch.empty((B, d), dtype=torch.float32, device=device)
+    hs = torch.empty((B, d), dtype=torch.bfloat16, device=device)
+    y = torch.empty((B, d), dtype=torch.bfloat16, device=device)
     params = (ctypes.c_void_p * N_OPERANDS)(*[t.data_ptr() for t in ops])
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.dhtrunk_forward(params, noise.data_ptr(), h.data_ptr(), y.data_ptr(),
-                                 out.data_ptr(), B, k0, d, o, stream)
-    cuda_lib.raise_on(lib.dhtrunk_error_string, rc, "trunk_layer_kernel")
+        rc = lib.dhtrunk_forward(params, noise.data_ptr(), h.data_ptr(), hs.data_ptr(),
+                                 y.data_ptr(), out.data_ptr(), B, k0, d, o, stream)
+    cuda_lib.raise_on(lib.dhtrunk_error_string, rc, "trunk_gemm_kernel")
     TRUNK_LAUNCHES += 1
     return out
 

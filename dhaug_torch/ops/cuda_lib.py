@@ -10,6 +10,11 @@ all.  Nothing is built at import time.
 The wrappers (``ops/fk_cuda.py``, ``models/trunk_cuda.py``) check their
 tensors with :func:`check_tensor` and raise through :func:`raise_on` when a
 launcher returns a CUDA error code.
+
+Nothing links ``libcuda``: the trunk kernel's TMA descriptors are encoded
+with ``cuTensorMapEncodeTiled``, which ``trunk_kernels.cu`` takes from the
+driver the CUDA runtime has already loaded, through
+``cudaGetDriverEntryPoint`` (``...ByVersion`` from CUDA 12.5 on).
 """
 from __future__ import annotations
 

@@ -104,10 +104,14 @@ def _trunk(dense, device, seed=0):
     return trunk_cuda.trunk_weights(FkGeneratorNet(GeneratorConfig(dense_dim=dense)).to(device))
 
 
-@pytest.mark.parametrize("dense,B", [(1000, 8192), (1000, 1000), (1000, 1), (40, 1000)])
+@pytest.mark.parametrize("dense,B", [(1000, 8192), (1000, 1000), (1000, 1), (40, 1000),
+                                     (64, 64), (256, 333)])
 def test_trunk_kernel_matches_plain(device, dense, B):
     """B3 against the plain bf16 trunk, to the bf16-level rule of
-    trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR."""
+    trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR: the synthesis width at full,
+    ragged and single-row batches, one tile (D = 64, B = 64: a swizzle or
+    descriptor mismatch shows here first), and ragged rows over several
+    tiles (D = 256, B = 333)."""
     ops = _trunk(dense, device)
     noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
                             dtype=torch.float32, device=device)
@@ -134,7 +138,7 @@ def test_trunk_wrapper_rejects_bad_tensors(device):
         trunk_cuda.trunk_forward_cuda(ops, noise.cpu())
     with pytest.raises(ValueError, match="operand 1: on cpu"):
         trunk_cuda.trunk_forward_cuda((ops[0], ops[1].cpu()) + ops[2:], noise)
-    with pytest.raises(ValueError, match="multiples of 32"):  # an unpadded width
+    with pytest.raises(ValueError, match="multiples of 64"):  # an unpadded width
         trunk_cuda.trunk_forward_cuda((ops[0][:40].contiguous(),) + ops[1:], noise)
     with pytest.raises(ValueError, match="operand 2: dtype"):
         trunk_cuda.trunk_forward_cuda(ops[:2] + (ops[2].float(),) + ops[3:], noise)

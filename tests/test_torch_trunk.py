@@ -63,6 +63,38 @@ def test_plain_trunk_matches_jax_reference_and_pallas_kernel(dense, B):
         assert max_err <= trunk_cuda.TRUNK_MAX_ERR and mean_err <= trunk_cuda.TRUNK_MEAN_ERR
 
 
+def _kernel_storage_model(ops, noise):
+    """Plain model of kernel B3's data flow between its 8 launches: the
+    prelude stores h in fp32 and its bf16 shadow; layer a of each block
+    stores y in bf16 only; layer b reads y and the fp32 h, and stores the
+    new fp32 h (not in the last block, where nothing reads it) and its
+    shadow; the head reads the shadow.  Each layer multiplies bf16
+    operands, sums in fp32 and adds the fp32 bias (then the residual)."""
+    def layer(a_bf16, w, b):
+        return a_bf16.float() @ w.float().t() + b
+
+    h = torch.relu(layer(noise.float().to(torch.bfloat16), ops[0], ops[1]))
+    shadow = h.to(torch.bfloat16)
+    for i in range(3):
+        wa, ba, wb, bb = ops[2 + 4 * i: 6 + 4 * i]
+        y = torch.relu(layer(shadow, wa, ba)).to(torch.bfloat16)
+        new_h = torch.relu(layer(y, wb, bb) + h)
+        shadow = new_h.to(torch.bfloat16)
+        h = new_h if i < 2 else None
+    return layer(shadow, ops[-2], ops[-1])
+
+
+@pytest.mark.parametrize("dense", [40, 64, 1000])
+def test_bf16_storage_between_layers_changes_nothing(dense):
+    """Storing each activation in bf16 where its next reader rounds it to
+    bf16 anyway gives the plain version's result bit for bit."""
+    _, _, port = _nets(dense)
+    ops = trunk_cuda.trunk_weights(port)
+    noise = torch.from_numpy(_noise(96, seed=5))
+    assert torch.equal(_kernel_storage_model(ops, noise),
+                       trunk_cuda.trunk_reference_bf16(ops, noise))
+
+
 def test_plain_trunk_tracks_the_fp32_net():
     _, _, port = _nets(128)
     noise = torch.from_numpy(_noise(300, seed=2))
