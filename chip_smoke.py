@@ -11,7 +11,11 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               register/spill report;
 3. kernels -- holds each kernel to its plain PyTorch version on the card:
               the FK kernels B1/B2 at B = 1024 (the training path's batch),
-              1000 (ragged) and 1, the trunk kernel B3 at D = 1000 and
+              1000, 1, 1027 (ragged), 8192 (the synthesis batch) and on
+              inputs 4 bytes past a 16-byte boundary, and times them at
+              B = 1024 and 8192 as device time a launch (torch.profiler),
+              loop of launches and host time a call, beside a launch floor
+              (a one-element ``zero_()``); the trunk kernel B3 at D = 1000 and
               B = 8192 (the synthesis batch), 1000 and 1, and at D = 64,
               B = 64 (one tile) and D = 256, B = 333 (ragged, several
               tiles); times kernel, plain version and, for B3, a cuBLAS
@@ -68,6 +72,13 @@ FWD_ATOL = 1e-6      # metres
 BWD_ATOL = 1e-5
 BWD_RTOL = 1e-5
 
+# FK kernel checks (batch, inputs 4 bytes past a 16-byte boundary) and the
+# batches timed: the training path's 1024, a ragged last tile, the
+# synthesis batch 8192
+FK_CHECKED = ((1024, False), (1000, False), (1, False), (1027, False), (8192, False),
+              (1027, True))
+FK_TIMED_B = (1024, 8192)
+
 # the synthesis path: the generator width, the CLI's default batch, 8 batches
 SYNTH_D = 1000
 SYNTH_B = 8192
@@ -117,50 +128,131 @@ def fk_inputs(B: int, seed: int, device):
     return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays]
 
 
+def misaligned(t):
+    """A copy of ``t`` on the card whose data starts 4 bytes past a 16-byte
+    boundary (the wrappers accept any 4-byte-aligned tensor)."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+def device_us(fn, name=None, calls: int = 30, warmup: int = 10) -> float:
+    """Median device time (µs) of one launch of the kernel whose name holds
+    ``name`` (any kernel when None), over ``calls`` calls of ``fn`` after
+    warm-up, from torch.profiler's kernel events; each call must launch it
+    once."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.name)]
+    # the profiler's activity buffer may drop an event now and then
+    if not calls - 3 <= len(us) <= calls:
+        raise AssertionError(f"profiled {len(us)} launches of {name}, expected {calls}")
+    return statistics.median(us)
+
+
+def host_us(fn, calls: int = 200, warmup: int = 20) -> float:
+    """Host µs a call: a host clock over ``calls`` unsynchronized calls,
+    then one synchronize (outside the clock)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def fk_bounds(B: int):
+    """(bound ms, bound by) of B1 and B2 at batch B: each input read once,
+    each output written once, against the fp32 FLOP counts above."""
+    return (bound_ms(B * (33 + 15 + 3 + 3 + 48) * 4, B * FWD_FLOP_PER_POSE),
+            bound_ms(B * (33 + 15 + 3 + 48 + 33 + 15 + 3 + 3) * 4, B * BWD_FLOP_PER_POSE))
+
+
+def time_fk_kernels(fk_cuda, device) -> dict:
+    """B1 and B2 at B = 1024 and 8192, three ways: device µs a launch
+    (torch.profiler), the loop of launches (CUDA events over 200 calls,
+    wrapper included) and host µs a call; the same for a launch floor, a
+    one-element ``zero_()``."""
+    import torch
+    times = {}
+    for B in FK_TIMED_B:
+        ang, bl, grot, root, cot = fk_inputs(B, seed=7, device=device)
+        for key, name, fn in (
+                ("fwd", "fk_forward_kernel", lambda: fk_cuda.fk_forward_cuda(ang, bl, grot, root)),
+                ("bwd", "fk_backward_kernel", lambda: fk_cuda.fk_backward_cuda(ang, bl, grot, cot))):
+            times[f"{key}_device_us_{B}"] = device_us(fn, name)
+            times[f"{key}_loop_ms_{B}"] = cuda_time_ms(fn)
+            times[f"{key}_host_us_{B}"] = host_us(fn)
+    one = torch.zeros(1, device=device)
+    times["floor_device_us"] = device_us(one.zero_)
+    times["floor_loop_ms"] = cuda_time_ms(one.zero_)
+    times["floor_host_us"] = host_us(one.zero_)
+    return times
+
+
 def phase_kernels(fk_plain, fk_cuda, device):
     """Both kernels against the plain FK (forward) and autograd through it
-    (backward) at B = 1024, 1000, 1; then timings at B = 1024."""
+    (backward) at B = 1024, 1000, 1, 1027 (a ragged last tile), 8192 and on
+    inputs 4 bytes past a 16-byte boundary; then timings (time_fk_kernels)
+    and the plain versions' at B = 1024."""
     import torch
     fwd_err, bwd_err = 0.0, 0.0
-    for B in (1024, 1000, 1):
+    for B, shift in FK_CHECKED:
         ang, bl, grot, root, cot = fk_inputs(B, seed=B, device=device)
+        if shift:
+            ang, bl, grot, root, cot = [misaligned(t) for t in (ang, bl, grot, root, cot)]
         got = fk_cuda.fk_forward_cuda(ang, bl, grot, root)
         inputs = [t.clone().requires_grad_(True) for t in (ang, bl, grot, root)]
         ref = fk_plain.fk_world_pose_16(*inputs)
         ref_grads = torch.autograd.grad(ref, inputs, cot)
         got_grads = fk_cuda.fk_backward_cuda(ang, bl, grot, cot)
         torch.cuda.synchronize()
+        case = f"B={B}" + (" misaligned" if shift else "")
         err = float((got - ref.detach()).abs().max())
         if not err <= FWD_ATOL:
-            raise AssertionError(f"forward kernel B={B}: max abs err {err} m > {FWD_ATOL}")
+            raise AssertionError(f"forward kernel {case}: max abs err {err} m > {FWD_ATOL}")
         fwd_err = max(fwd_err, err)
         for name, r, g in zip(("dangles", "dbone_len", "dglobal_rot", "droot"),
                               ref_grads, got_grads):
             if not torch.allclose(g, r, atol=BWD_ATOL, rtol=BWD_RTOL):
-                raise AssertionError(f"backward kernel B={B} {name}: max abs err "
+                raise AssertionError(f"backward kernel {case} {name}: max abs err "
                                      f"{float((g - r).abs().max())} beyond atol {BWD_ATOL} "
                                      f"rtol {BWD_RTOL}")
             bwd_err = max(bwd_err, float((g - r).abs().max()))
-        emit({"phase": "kernels", "B": B, "fwd_max_abs_err_m": err,
+        emit({"phase": "kernels", "B": B, "misaligned": shift, "fwd_max_abs_err_m": err,
               "bwd_max_abs_err": max(float((g - r).abs().max())
                                      for r, g in zip(ref_grads, got_grads))})
 
+    times = time_fk_kernels(fk_cuda, device)
     B = 1024
     ang, bl, grot, root, cot = fk_inputs(B, seed=7, device=device)
     inputs = [t.clone().requires_grad_(True) for t in (ang, bl, grot, root)]
     plain_out = fk_plain.fk_world_pose_16(*inputs)
     with torch.no_grad():
-        times = {
-            "fwd_ms": cuda_time_ms(lambda: fk_cuda.fk_forward_cuda(ang, bl, grot, root)),
-            "fwd_plain_ms": cuda_time_ms(lambda: fk_plain.fk_world_pose_16(ang, bl, grot, root)),
-            "bwd_ms": cuda_time_ms(lambda: fk_cuda.fk_backward_cuda(ang, bl, grot, cot)),
-        }
+        times["fwd_plain_ms"] = cuda_time_ms(lambda: fk_plain.fk_world_pose_16(ang, bl, grot, root))
     times["bwd_plain_ms"] = cuda_time_ms(
         lambda: torch.autograd.grad(plain_out, inputs, cot, retain_graph=True), iters=50)
-    fwd_bound = bound_ms(B * (33 + 15 + 3 + 3 + 48) * 4, B * FWD_FLOP_PER_POSE)
-    bwd_bound = bound_ms(B * (33 + 15 + 3 + 48 + 33 + 15 + 3 + 3) * 4, B * BWD_FLOP_PER_POSE)
+    fwd_bound, bwd_bound = fk_bounds(B)
     emit({"phase": "kernels", "B": B, **times,
-          "fwd_bound_ms": fwd_bound[0], "bwd_bound_ms": bwd_bound[0]})
+          "fwd_bound_ms": fwd_bound[0], "bwd_bound_ms": bwd_bound[0],
+          "fwd_bound_ms_8192": fk_bounds(8192)[0][0], "bwd_bound_ms_8192": fk_bounds(8192)[1][0]})
     return fwd_err, bwd_err, times, fwd_bound, bwd_bound
 
 
@@ -524,16 +616,28 @@ def main() -> int:
 
     by_path = lambda key: {"main": main_launches[key], "synth": synth_launches[key]}
     source = "dhaug_torch/csrc/fk_kernels.cu"
+
+    def fk_times(key):
+        """ms: device time a launch at B = 1024; beside it B = 8192, the loop
+        of launches, host µs a call and the launch floor."""
+        return {"ms": times[f"{key}_device_us_1024"] / 1e3,
+                "ms_at_8192": times[f"{key}_device_us_8192"] / 1e3,
+                "loop_ms": times[f"{key}_loop_ms_1024"],
+                "loop_ms_at_8192": times[f"{key}_loop_ms_8192"],
+                "host_us_per_call": times[f"{key}_host_us_1024"],
+                "launch_floor_ms": times["floor_device_us"] / 1e3,
+                "launch_floor_loop_ms": times["floor_loop_ms"],
+                "bound_ms_at_8192": fk_bounds(8192)[0 if key == "fwd" else 1][0]}
     kernels = [
         {"name": "fk_forward_kernel", "route": "cuda", "source": source,
          "replaces": "dhaug_tpu/ops/fk_pallas.py:105", "launches": main_launches["fwd"],
          "launches_by_path": by_path("fwd"),
-         "max_abs_err": fwd_err, "ms": times["fwd_ms"], "plain_ms": times["fwd_plain_ms"],
+         "max_abs_err": fwd_err, **fk_times("fwd"), "plain_ms": times["fwd_plain_ms"],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "fk_backward_kernel", "route": "cuda", "source": source,
          "replaces": "dhaug_tpu/ops/fk_pallas.py:355", "launches": main_launches["bwd"],
          "launches_by_path": by_path("bwd"),
-         "max_abs_err": bwd_err, "ms": times["bwd_ms"], "plain_ms": times["bwd_plain_ms"],
+         "max_abs_err": bwd_err, **fk_times("bwd"), "plain_ms": times["bwd_plain_ms"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
         {"name": "trunk_gemm_kernel", "route": "cuda",
          "source": "dhaug_torch/csrc/trunk_kernels.cu",

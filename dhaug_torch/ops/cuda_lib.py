@@ -122,6 +122,16 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name}: data must start on a {align}-byte boundary")
 
 
+def launch_on(device: torch.device, launch):
+    """``launch(stream)`` with the current stream of ``device``, entering a
+    ``torch.cuda.device`` context only when ``device`` is not the current
+    one (the context costs host time on every call)."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream().cuda_stream)
+
+
 def raise_on(error_string, rc: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code (``error_string`` is
     the library's ``<prefix>_error_string``)."""

@@ -1,8 +1,10 @@
 """CUDA kernels B1 (forward DH-FK) and B2 (its VJP): build, bind, launch.
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/fk_kernels.cu``,
-per-pose math in ``csrc/fk_chain.cuh``).  They replace the Pallas kernels
-``dhaug_tpu/ops/fk_pallas.py::_fk_kernel`` and ``::_fk_bwd_kernel``.
+tile phases in ``csrc/fk_chain.cuh``: a block takes 32 poses and spreads
+their trig, five chains and outputs across its threads).  They replace the
+Pallas kernels ``dhaug_tpu/ops/fk_pallas.py::_fk_kernel`` and
+``::_fk_bwd_kernel``.
 
 Build: ``ops/cuda_lib.py`` compiles ``csrc/fk_kernels.cu`` with ``nvcc`` at
 first use into a shared library with a plain C interface, and ``ctypes``
@@ -61,11 +63,9 @@ def fk_forward_cuda(angles, bone_len, global_rot, root) -> torch.Tensor:
     if B == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.dhfk_forward(angles.data_ptr(), bone_len.data_ptr(),
-                              global_rot.data_ptr(), root.data_ptr(),
-                              out.data_ptr(), B, stream)
+    rc = cuda_lib.launch_on(device, lambda stream: lib.dhfk_forward(
+        angles.data_ptr(), bone_len.data_ptr(), global_rot.data_ptr(), root.data_ptr(),
+        out.data_ptr(), B, stream))
     cuda_lib.raise_on(lib.dhfk_error_string, rc, "fk_forward_kernel")
     FWD_LAUNCHES += 1
     return out
@@ -87,11 +87,9 @@ def fk_backward_cuda(angles, bone_len, global_rot, g):
     if B == 0:
         return tuple(outs)
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.dhfk_backward(angles.data_ptr(), bone_len.data_ptr(),
-                               global_rot.data_ptr(), g.data_ptr(),
-                               *[o.data_ptr() for o in outs], B, stream)
+    rc = cuda_lib.launch_on(device, lambda stream: lib.dhfk_backward(
+        angles.data_ptr(), bone_len.data_ptr(), global_rot.data_ptr(), g.data_ptr(),
+        *[o.data_ptr() for o in outs], B, stream))
     cuda_lib.raise_on(lib.dhfk_error_string, rc, "fk_backward_kernel")
     BWD_LAUNCHES += 1
     return tuple(outs)

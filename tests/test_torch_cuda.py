@@ -30,9 +30,29 @@ def _inputs(B, seed, device):
     return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays]
 
 
-@pytest.mark.parametrize("B", [1, 1000, 1024])
-def test_forward_kernel_matches_plain(device, B):
-    ang, bl, grot, root, _ = _inputs(B, B, device)
+def _misaligned(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+# the training batch, ragged ones (1000, and 1027: a last tile of 3 poses),
+# the synthesis batch; "1027m": inputs 4 bytes past a 16-byte boundary
+FK_CASES = [1, 1000, 1024, 1027, 8192, "1027m"]
+
+
+def _fk_case(case, seed_offset, device):
+    B = int(str(case).rstrip("m"))
+    arrays = _inputs(B, B + seed_offset, device)
+    return B, [_misaligned(t) for t in arrays] if str(case).endswith("m") else arrays
+
+
+@pytest.mark.parametrize("case", FK_CASES)
+def test_forward_kernel_matches_plain(device, case):
+    B, (ang, bl, grot, root, _) = _fk_case(case, 0, device)
     n0 = fk_cuda.FWD_LAUNCHES
     out = fk_cuda.fk_forward_cuda(ang, bl, grot, root)
     torch.cuda.synchronize()
@@ -41,9 +61,9 @@ def test_forward_kernel_matches_plain(device, B):
                                atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("B", [1, 1000, 1024])
-def test_backward_kernel_matches_autograd(device, B):
-    ang, bl, grot, root, cot = _inputs(B, B + 1, device)
+@pytest.mark.parametrize("case", FK_CASES)
+def test_backward_kernel_matches_autograd(device, case):
+    B, (ang, bl, grot, root, cot) = _fk_case(case, 1, device)
     inputs = [t.clone().requires_grad_(True) for t in (ang, bl, grot, root)]
     ref = torch.autograd.grad(fk_plain.fk_world_pose_16(*inputs), inputs, cot)
     n0 = fk_cuda.BWD_LAUNCHES
