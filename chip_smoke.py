@@ -11,8 +11,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               register/spill report;
 3. kernels -- holds each kernel to its plain PyTorch version on the card:
               the FK kernels B1/B2 at B = 1024 (the training path's batch),
-              1000, 1, 1027 (ragged), 8192 (the synthesis batch) and on
-              inputs 4 bytes past a 16-byte boundary, and times them at
+              1000, 1, 1027 (ragged), 8192 (the synthesis batch), 10000
+              (the traditional augmenter's) and on inputs 4 bytes past a
+              16-byte boundary, and times them at
               B = 1024 and 8192 as device time a launch (torch.profiler),
               loop of launches and host time a call, beside a launch floor
               (a one-element ``zero_()``); the trunk kernel B3 at D = 1000 and
@@ -35,9 +36,23 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               the counters set to 0 just before and read just after, checks
               the loaded weights, the launches and the npz (shapes, finite,
               bone lengths in the scaler range), and times the synthesis
-              body at B = 8192.
+              body at B = 8192;
+7. posenets -- the main command with ``--posenet_name gcn`` and then
+              ``videopose`` (4 stages), 2 epochs each: scores, launches of
+              B1 and B2, checkpoints, epoch seconds;
+8. augment -- 1 epoch of ``--data_enhancement_method normal`` (one B1
+              launch at B = 10000) and 1 of ``NO_enhance`` (none);
+9. baseline -- ``dhaug_torch.run_baseline`` (videopose, the synth phase's
+              npz mixed into the real pairs, 2 epochs), then
+              ``dhaug_torch.run_evaluate`` on its best checkpoint (its best
+              H36M P1 within 0.05 mm), on the gcn run's best checkpoint and
+              on a ``.pth.tar`` of it (the same scores), with 3DPW scoring
+              of a seeded fake SMPL-24 npz.
 
-Then it prints the ``nvidia-smi`` name/power-limit line, one ``kernels``
+Each run of phases 7-9 is then run once more under torch.profiler, outside
+the counted run, for its device kernel time, busy share and top kernels.
+Each path's launch counters are set to 0 just before it runs and read just
+after.  Then it prints the ``nvidia-smi`` name/power-limit line, one ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -74,9 +89,10 @@ BWD_RTOL = 1e-5
 
 # FK kernel checks (batch, inputs 4 bytes past a 16-byte boundary) and the
 # batches timed: the training path's 1024, a ragged last tile, the
-# synthesis batch 8192
+# synthesis batch 8192, the traditional augmenter's 10000 (312 full tiles of
+# 32 poses and one of 16)
 FK_CHECKED = ((1024, False), (1000, False), (1, False), (1027, False), (8192, False),
-              (1027, True))
+              (1027, True), (10000, False))
 FK_TIMED_B = (1024, 8192)
 
 # the synthesis path: the generator width, the CLI's default batch, 8 batches
@@ -91,6 +107,18 @@ MAIN_ARGS = ["--note", "chip_smoke", "--posenet_name", "mlp", "--lr_p", "1e-3",
              "--data_enhancement_method", "GAN", "--single_or_multi_train_mode", "single",
              "--epochs", "3", "--additional_train_epoch", "0", "--warmup", "0",
              "--device", "cuda"]
+
+
+def with_flags(args: list, **flags) -> list:
+    """``args`` with each ``--flag value`` of ``flags`` replaced or added."""
+    out = list(args)
+    for flag, value in flags.items():
+        key = f"--{flag}"
+        if key in out:
+            out[out.index(key) + 1] = str(value)
+        else:
+            out += [key, str(value)]
+    return out
 
 
 def emit(obj) -> None:
@@ -575,6 +603,152 @@ def phase_synth(fk_cuda, trunk_cuda, run_dir: Path, device):
     return launches
 
 
+def check_scores(label: str, scores: dict) -> dict:
+    """H36M/3DHP P1 and P2 of a run, raising unless finite and positive."""
+    metrics = {f"{s}_{k}": scores[s][k] for s in ("h36m", "dhp") for k in ("p1", "p2")}
+    bad = {k: v for k, v in metrics.items() if not (math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{label}: metrics not finite and positive: {bad}")
+    return metrics
+
+
+def check_files(label: str, run_dir: Path, names) -> None:
+    for name in names:
+        if not (run_dir / name).is_file():
+            raise AssertionError(f"{label} wrote no {name} in {run_dir}")
+
+
+def profile_run(label: str, fn, wall_s: float) -> dict:
+    """Run ``fn`` once more under torch.profiler and read its kernel time.
+    Its busy share is that device time over ``wall_s``, the unprofiled
+    run's wall seconds (the profiler slows the host); the top kernels come
+    by device time, with their launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    out = {"path": label, "device_kernel_s": busy_s, "unprofiled_wall_s": wall_s,
+           "device_busy_share": busy_s / wall_s,
+           "top_kernels_device_s": [[e.key[:80], e.self_device_time_total / 1e6, e.count]
+                                    for e in top]}
+    emit({"phase": "profile", **out})
+    return out
+
+
+def phase_posenets(fk_cuda, trunk_cuda):
+    """The README command with the gcn and then the videopose posenet, 2
+    epochs each at full width (batch 1024, 4 stages): 8 GAN iterations, so
+    one generator update (B2) and posenet passes on fakes and real data."""
+    from dhaug_torch import run_fk_gan
+    launches, run_dirs = {}, {}
+    for name in ("gcn", "videopose"):
+        args = with_flags(MAIN_ARGS, posenet_name=name, epochs=2, stages=4,
+                          data_root=REPO, checkpoint=REPO / "_runs" / f"chip_smoke_{name}")
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        result = run_fk_gan.main(args)
+        seconds = time.perf_counter() - t0
+        launches[name] = read_counts(fk_cuda, trunk_cuda)
+        metrics = check_scores(name, result["scores"])
+        emit({"phase": "posenets", "posenet": name, "seconds": seconds,
+              "epoch_seconds": result["epoch_seconds"], "launches": launches[name], **metrics})
+        profile_run(name, lambda: run_fk_gan.main(args), seconds)
+        # 8 critic-phase forwards and one generator update (iteration 4)
+        if launches[name]["fwd"] < 9 or launches[name]["bwd"] < 1:
+            raise AssertionError(f"{name}: the kernels ran too little: {launches[name]}")
+        run_dirs[name] = Path(result["run_dir"])
+        check_files(name, run_dirs[name], ("ckpt_resume_latest.ckpt", "ckpt_best_dhp_p1.ckpt",
+                                           "ckpt_best_h36m_p1.ckpt"))
+    return launches, run_dirs
+
+
+def phase_augment(fk_cuda, trunk_cuda):
+    """One epoch of --data_enhancement_method normal (10000 random FK poses:
+    one B1 launch at B = 10000, seen through the 20 training cameras), then
+    one of NO_enhance (no FK at all)."""
+    from dhaug_torch import run_fk_gan
+    launches = {}
+    for method, want in (("normal", {"fwd": 1, "bwd": 0}), ("NO_enhance", {"fwd": 0, "bwd": 0})):
+        args = with_flags(MAIN_ARGS, data_enhancement_method=method, epochs=1, data_root=REPO,
+                          checkpoint=REPO / "_runs" / f"chip_smoke_{method}")
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        result = run_fk_gan.main(args)
+        seconds = time.perf_counter() - t0
+        launches[method] = read_counts(fk_cuda, trunk_cuda)
+        metrics = check_scores(method, result["scores"])
+        emit({"phase": "augment", "method": method, "seconds": seconds,
+              "epoch_seconds": result["epoch_seconds"], "launches": launches[method],
+              **metrics})
+        profile_run(method, lambda: run_fk_gan.main(args), seconds)
+        if {k: launches[method][k] for k in want} != want:
+            raise AssertionError(f"{method}: launches {launches[method]}, expected {want}")
+    return launches
+
+
+def phase_baseline(fk_cuda, trunk_cuda, gcn_run_dir: Path):
+    """run_baseline with videopose on the real data mixed with the synth
+    phase's npz, 2 epochs; run_evaluate on its best checkpoint (the printed
+    best H36M P1 within 0.05 mm), on the gcn run's best checkpoint
+    ('model_pos' layout) and on a .pth.tar of that net, and 3DPW scoring of
+    a seeded fake SMPL-24 npz."""
+    import numpy as np
+    import torch
+    from dhaug_torch import run_baseline, run_evaluate
+    from dhaug_torch.utils.checkpoint import load_ckpt
+
+    runs = REPO / "_runs" / "chip_smoke"
+    args = ["--posenet_name", "videopose", "--keypoints", "gt", "--batch_size", "1024",
+            "--epochs", "2", "--train_npz", str(runs / "dh_synth.npz"), "--train_npz_mode", "mix",
+            "--data_root", str(REPO), "--checkpoint", str(REPO / "_runs" / "chip_smoke_baseline"),
+            "--device", "cuda"]
+    reset_counts(fk_cuda, trunk_cuda)
+    t0 = time.perf_counter()
+    base = run_baseline.main(args)
+    seconds = time.perf_counter() - t0
+    launches = read_counts(fk_cuda, trunk_cuda)
+    profile_run("baseline", lambda: run_baseline.main(args), seconds)
+    base_dir = Path(base["run_dir"])
+    check_files("run_baseline", base_dir, ("ckpt_best.ckpt", "ckpt_best_dhp_p1.ckpt"))
+    common = ["--data_root", str(REPO), "--batch_size", "1024", "--device", "cuda"]
+    ev = run_evaluate.main(["--evaluate", str(base_dir / "ckpt_best.ckpt")] + common)
+    gap = abs(ev["h36m"]["p1"] - base["best_h36m"])
+    if not (math.isfinite(base["best_h36m"]) and gap <= 0.05):
+        raise AssertionError(f"evaluate gives H36M P1 {ev['h36m']['p1']}, the baseline's best "
+                             f"was {base['best_h36m']}")
+
+    gcn_ckpt = gcn_run_dir / "ckpt_best_h36m_p1.ckpt"
+    ev_gcn = run_evaluate.main(["--evaluate", str(gcn_ckpt)] + common)
+    pth = runs / "ckpt_gcn.pth.tar"
+    torch.save({"model_pos": load_ckpt(str(gcn_ckpt))["model_pos"]}, pth)
+    rng = np.random.default_rng(0)
+    pw3d = runs / "fake_3dpw.npz"
+    np.savez(pw3d, pose3d=rng.normal(size=(4096, 24, 3)).astype(np.float32) * 0.3,
+             pose2d=rng.normal(size=(4096, 16, 2)).astype(np.float32) * 0.3)
+    ev_pth = run_evaluate.main(["--evaluate", str(pth), "--posenet_name", "gcn",
+                                "--Path_3DPW", str(pw3d)] + common)
+    for label, scores in (("gcn .ckpt", ev_gcn), (".pth.tar", ev_pth)):
+        check_scores(label, scores)
+    pth_gap = max(abs(ev_gcn[s][k] - ev_pth[s][k]) for s in ("h36m", "dhp") for k in ("p1", "p2"))
+    if not pth_gap <= 1e-3:
+        raise AssertionError(f"the .pth.tar scores {ev_pth['h36m']}, {ev_pth['dhp']} differ from "
+                             f"the .ckpt's {ev_gcn['h36m']}, {ev_gcn['dhp']}")
+    if not all(math.isfinite(ev_pth["pw3d"][k]) for k in ("p1", "p2")):
+        raise AssertionError(f"3DPW scores not finite: {ev_pth['pw3d']}")
+    emit({"phase": "baseline", "seconds": seconds, "epoch_seconds": base["epoch_seconds"],
+          "launches": launches,
+          "best_h36m_p1": base["best_h36m"], "best_dhp_p1": base["best_dhp"],
+          "evaluate_h36m_p1": ev["h36m"]["p1"], "evaluate_gap_mm": gap,
+          "gcn_evaluate": {k: ev_gcn[k]["p1"] for k in ("h36m", "dhp")},
+          "pth_tar_gap_mm": pth_gap, "pw3d": ev_pth["pw3d"]})
+    return launches
+
+
 def main() -> int:
     if not (REPO / "dhaug_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the dhaug_torch package is not beside this script",
@@ -613,8 +787,13 @@ def main() -> int:
     main_launches, gan, run_dir = phase_main(fk_cuda, trunk_cuda, device)
     phase_profile(gan, device)
     synth_launches = phase_synth(fk_cuda, trunk_cuda, run_dir, device)
+    posenet_launches, posenet_dirs = phase_posenets(fk_cuda, trunk_cuda)
+    augment_launches = phase_augment(fk_cuda, trunk_cuda)
+    baseline_launches = phase_baseline(fk_cuda, trunk_cuda, posenet_dirs["gcn"])
 
-    by_path = lambda key: {"main": main_launches[key], "synth": synth_launches[key]}
+    paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
+             **augment_launches, "baseline": baseline_launches}
+    by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 
     def fk_times(key):

@@ -32,6 +32,11 @@ def np_world_to_camera(X: np.ndarray, R: np.ndarray, t: np.ndarray) -> np.ndarra
     return np_qrot(Rt, X - t)
 
 
+def np_camera_to_world(X: np.ndarray, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    R = np.broadcast_to(R, X.shape[:-1] + (4,))
+    return np_qrot(R, X) + t
+
+
 def np_normalize_screen(points: np.ndarray, w: float, h: float) -> np.ndarray:
     out = points.copy()
     out[..., 0] = out[..., 0] / w * 2.0 - 1.0
@@ -76,11 +81,11 @@ def create_2d_data(data_path, dataset):
 def fetch(subjects, dataset, keypoints, action_filter=None, stride: int = 1,
           train: bool = True):
     """Flatten (subject, action, camera) into parallel per-sequence lists of
-    camera-space 3D (N, 16, 3), 2D (N, 16, 2) and per-frame 16-float camera
-    records (intrinsic | orientation | translation): the reference's
-    'single' mode of utils/data_utils.py:42-126.  ``stride`` subsamples the
-    training frames."""
-    out_poses_3d, out_poses_2d, out_cam = [], [], []
+    camera-space 3D (N, 16, 3), 2D (N, 16, 2), per-frame 16-float camera
+    records (intrinsic | orientation | translation) and per-frame action
+    names: the reference's 'single' mode of utils/data_utils.py:42-126.
+    ``stride`` subsamples the training frames."""
+    out_poses_3d, out_poses_2d, out_cam, out_actions = [], [], [], []
     for subject in subjects:
         for action in keypoints[subject].keys():
             if action_filter is not None and \
@@ -104,7 +109,8 @@ def fetch(subjects, dataset, keypoints, action_filter=None, stride: int = 1,
                 out_poses_3d.append(np.asarray(pose_3d, np.float32)[sl])
                 out_poses_2d.append(np.asarray(poses_2d[i][:n3], np.float32)[sl])
                 out_cam.append(np.tile(record[None], (n3, 1))[sl])
-    return out_poses_3d, out_poses_2d, out_cam
+                out_actions.append([action.split(" ")[0]] * len(out_poses_3d[-1]))
+    return out_poses_3d, out_poses_2d, out_cam, out_actions
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,12 @@ class Skeleton:
         self._joints_left = list(joints_left)
         self._joints_right = list(joints_right)
 
+    def num_joints(self) -> int:
+        return len(self._parents)
+
+    def parents(self) -> np.ndarray:
+        return self._parents
+
     def remove_joints(self, joints_to_remove, dataset=None):
         """Remove joints, rewiring children to the removed joint's parent,
         and drop the same columns from every pose array of ``dataset``.
@@ -69,6 +75,9 @@ class MocapDataset:
 
     def subjects(self):
         return self._data.keys()
+
+    def skeleton(self) -> Skeleton:
+        return self._skeleton
 
     def cameras(self):
         return self._cameras

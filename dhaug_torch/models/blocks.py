@@ -1,8 +1,9 @@
-"""Shared dense building blocks of the GAN nets and the MLP posenet.
+"""Shared dense building blocks of the GAN nets and the posenets.
 
 Port of ``dhaug_tpu/models/blocks.py``.  Initialisation mirrors flax's
-``he_normal``: a normal truncated at two standard deviations, fan-in, scale
-2, with the standard deviation corrected for the truncation; biases zero.
+fan-in ``variance_scaling``: a normal truncated at two standard deviations
+with the standard deviation corrected for the truncation (``he_normal`` at
+scale 2, ``lecun_normal`` at scale 1); biases zero.
 """
 from __future__ import annotations
 
@@ -17,11 +18,21 @@ from torch.nn import functional as F
 _TRUNC_STD = 0.87962566103423978
 
 
-def he_normal_(weight: torch.Tensor) -> torch.Tensor:
-    """flax ``he_normal`` on a torch (out, in) weight."""
-    fan_in = weight.shape[1]
-    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+def trunc_normal_fan_in_(weight: torch.Tensor, scale: float, fan_in: int) -> torch.Tensor:
+    """flax ``variance_scaling(scale, 'fan_in', 'truncated_normal')``."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
     return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
+
+
+def he_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax ``he_normal`` on a torch (out, in, *kernel) weight: fan-in is
+    in x kernel size, as flax counts it on its (*kernel, in, out) layout."""
+    return trunc_normal_fan_in_(weight, 2.0, weight[0].numel())
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax ``lecun_normal`` (its default ``Dense`` kernel initialiser)."""
+    return trunc_normal_fan_in_(weight, 1.0, weight[0].numel())
 
 
 def dense(in_dim: int, out_dim: int) -> nn.Linear:

@@ -1,7 +1,10 @@
-"""Pose metrics: MPJPE and per-sample Procrustes-aligned MPJPE (P-MPJPE).
+"""Pose metrics: MPJPE, Procrustes-aligned MPJPE (P-MPJPE), scale-normalized
+MPJPE, velocity error, PCK and AUC.
 
-Port of ``dhaug_tpu/ops/metrics.py:17-66``.  Metres in, metres out; callers
-scale to mm.  P-MPJPE uses a batched SVD of the (N, 3, 3) cross-covariances.
+Port of ``dhaug_tpu/ops/metrics.py:17-97``.  Metres in, metres out (callers
+scale to mm); PCK and AUC take metres and return percent, at the 3DHP
+protocol's 150 mm and 31 thresholds in [0, 150] mm.  P-MPJPE uses a batched
+SVD of the (N, 3, 3) cross-covariances.
 """
 from __future__ import annotations
 
@@ -40,3 +43,39 @@ def p_mpjpe_per_sample(predicted: torch.Tensor, target: torch.Tensor) -> torch.T
     t = muX - a * (muY @ R)
     aligned = a * (predicted @ R) + t
     return torch.mean(torch.linalg.vector_norm(aligned - target, dim=-1), dim=-1)
+
+
+def p_mpjpe(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MPJPE after the per-sample similarity alignment ("Protocol #2")."""
+    return torch.mean(p_mpjpe_per_sample(predicted, target))
+
+
+def n_mpjpe(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MPJPE after the optimal per-sample scale of the prediction."""
+    norm_predicted = torch.mean(torch.sum(predicted ** 2, dim=-1, keepdim=True), dim=-2,
+                                keepdim=True)
+    norm_target = torch.mean(torch.sum(target * predicted, dim=-1, keepdim=True), dim=-2,
+                             keepdim=True)
+    return mpjpe(norm_target / norm_predicted * predicted, target)
+
+
+def mean_velocity_error(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean error of the frame-to-frame velocities (first axis is time)."""
+    return torch.mean(torch.linalg.vector_norm(torch.diff(predicted, dim=0)
+                                               - torch.diff(target, dim=0), dim=-1))
+
+
+def compute_pck(gts: torch.Tensor, preds: torch.Tensor, scale: float = 1000.0,
+                threshold: float = 150.0) -> torch.Tensor:
+    """Percentage of joints whose error, times ``scale`` (m -> mm), is below
+    ``threshold``."""
+    err = torch.linalg.vector_norm(preds - gts, dim=-1) * scale
+    return torch.mean((err < threshold).float()) * 100.0
+
+
+def compute_auc(gts: torch.Tensor, preds: torch.Tensor, scale: float = 1000.0) -> torch.Tensor:
+    """Mean PCK over 31 thresholds in [0, 150] mm."""
+    err = torch.linalg.vector_norm(preds - gts, dim=-1) * scale
+    thresholds = torch.linspace(0.0, 150.0, 31, dtype=err.dtype, device=err.device)
+    # every threshold's PCK averages the same joints: one mean over both
+    return torch.mean((err.reshape(-1, 1) < thresholds).float()) * 100.0

@@ -1,9 +1,10 @@
-"""Flags of ``python -m dhaug_torch.run_fk_gan``.
+"""Flags of ``python -m dhaug_torch.run_fk_gan``, ``run_baseline`` and
+``run_evaluate``.
 
-A copy of the JAX package's run_Fk_GAN parser (``dhaug_tpu/train/config.py``)
+A copy of the JAX package's two parsers (``dhaug_tpu/train/config.py``)
 with every reference flag under its name and default.  The one change:
 the JAX-only ``--jax_platform`` becomes ``--device`` (default ``cuda``).
-Flags whose code is not ported yet are parsed and refused by the runner.
+Flags whose code is not ported yet are parsed and refused by the runners.
 """
 from __future__ import annotations
 
@@ -143,6 +144,43 @@ def get_aug_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def get_baseline_parser() -> argparse.ArgumentParser:
+    """The run_baseline / run_evaluate flag surface (function_baseline/config.py)."""
+    parser = argparse.ArgumentParser(description="DH-AUG baseline (PyTorch port)")
+    _add_common(parser)
+    parser.add_argument("--snapshot", default=25, type=int)
+    parser.add_argument("--action-wise", default=True, type=_str2bool)
+    parser.add_argument("--Path_3DPW", default="", type=str,
+                        help="npz with pose3d (N,24|16,3 m) + pose2d "
+                             "(N,16,2 normalized): adds a 3DPW cross-dataset "
+                             "evaluation to run_evaluate (the reference's "
+                             "--Path_3DPW is dead code)")
+    parser.add_argument("--train_npz", default="", type=str,
+                        help="train on a synthesized (2D, 3D) dataset npz "
+                             "(synthesize_dataset output: pose3d "
+                             "cam-space metres, pose2d normalized, cam "
+                             "intrinsics) — the DH-3DHP workflow; evaluation "
+                             "stays on H36M S9/S11 + 3DHP.  See "
+                             "--train_npz_mode for replace-vs-mix")
+    parser.add_argument("--train_npz_mode", default="mix", type=str,
+                        choices=["mix", "replace"],
+                        help="how --train_npz combines with the real train "
+                             "split: 'mix' (default) concatenates the "
+                             "synthesized pairs with the real pairs and "
+                             "shuffles them together — the released-dataset "
+                             "augmentation workflow the reference's DH-3DHP "
+                             "download serves (README.md:104-106); "
+                             "'replace' trains on the npz alone")
+    parser.add_argument("--lr", default=1.0e-3, type=float, metavar="LR")
+    parser.add_argument("--lr_decay", type=int, default=100000)
+    parser.add_argument("--lr_gamma", type=float, default=0.96)
+    # the aug parser's video/arch flags are needed by shared code paths
+    parser.add_argument("--single_or_multi_train_mode", default="single", type=str)
+    parser.add_argument("--architecture", default="3,3,3", type=str, metavar="LAYERS")
+    parser.add_argument("--flip_pos_model_input", default=False, type=_str2bool)
+    return parser
+
+
 def _validate_architecture(arch: str):
     try:
         widths = [int(x) for x in arch.split(",")]
@@ -163,4 +201,10 @@ def parse_aug_args(argv=None):
         raise SystemExit("--resume and --evaluate cannot be set at the same time")
     if args.s1only and args.s1s5only:
         raise SystemExit("--s1only and --s1s5only cannot both be true")
+    return args
+
+
+def parse_baseline_args(argv=None):
+    args = get_baseline_parser().parse_args(argv)
+    _validate_architecture(args.architecture)
     return args

@@ -1,6 +1,6 @@
-"""Data preparation for the single-frame runner (port of
-``dhaug_tpu/train/data_prep.py``'s ``prepare_data`` and
-``train_subject_list``).
+"""Data preparation for the single-frame runners (port of
+``dhaug_tpu/train/data_prep.py``'s ``prepare_data``, ``train_subject_list``
+and ``world_pose_pool``).
 
 It reads the H36M-format npz files and the 3DHP test set from
 ``--data_root``.  It does not validate the dataset directory or fabricate a
@@ -16,15 +16,20 @@ import numpy as np
 
 from dhaug_torch.data.h36m import TEST_SUBJECTS, Human36mDataset
 from dhaug_torch.data.loaders import (PoseBuffer, PoseDataset, create_2d_data, fetch,
-                                      read_3d_data)
+                                      np_camera_to_world, read_3d_data)
 
 
 @dataclass
 class DataBundle:
+    dataset: Human36mDataset     # its skeleton() builds the SemGCN graph
     train_det2d3d: PoseDataset   # posenet's real pass (2D from --keypoints)
     train_gt2d3d: PoseDataset    # what the GAN epoch re-skins
     h36m_test: PoseDataset
     mpi3d: PoseBuffer
+    actions_valid: list          # one action name per H36M test frame
+    # per-sequence training lists, for the traditional augmenter's pose pool
+    poses_train: list
+    cams_train: list
 
 
 def train_subject_list(args) -> List[str]:
@@ -51,20 +56,40 @@ def prepare_data(args) -> DataBundle:
     if action_filter is not None:
         action_filter = [dataset.define_actions(a)[0] for a in action_filter]
 
-    train_ds = PoseDataset.from_lists(*fetch(
+    poses_train, poses_train_2d, cams_train, _ = fetch(
         train_subject_list(args), dataset, keypoints, action_filter, args.downsample,
-        train=True))
-    valid_ds = PoseDataset.from_lists(*fetch(
+        train=True)
+    poses_valid, poses_valid_2d, cams_valid, actions_valid = fetch(
         list(TEST_SUBJECTS), dataset, keypoints, action_filter, args.downsample,
-        train=False))
+        train=False)
+    train_ds = PoseDataset.from_lists(poses_train, poses_train_2d, cams_train)
 
     mpi = np.load(os.path.join(root, "data_extra", "test_set", "test_3dhp.npz"))
     mpi3d = PoseBuffer.from_lists([mpi["pose3d"]], [mpi["pose2d"]])
 
     return DataBundle(
+        dataset=dataset,
         train_det2d3d=train_ds,
         train_gt2d3d=PoseDataset(train_ds.poses_3d.copy(), train_ds.poses_2d.copy(),
                                  train_ds.cams.copy()),
-        h36m_test=valid_ds,
+        h36m_test=PoseDataset.from_lists(poses_valid, poses_valid_2d, cams_valid),
         mpi3d=mpi3d,
+        actions_valid=[a for seq in actions_valid for a in seq],
+        poses_train=poses_train,
+        cams_train=cams_train,
     )
+
+
+def world_pose_pool(bundle: DataBundle, max_poses: int = 20000,
+                    seed: int = 0) -> np.ndarray:
+    """A (P, 16, 3) pool of real world poses for the traditional augmenter
+    to harvest bone lengths and roots from: each training sequence taken
+    back to the world frame through its camera, at most ``max_poses`` of
+    them drawn without replacement (the JAX package's numpy stream)."""
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([np_camera_to_world(pose_cam, cam[0, 9:13], cam[0, 13:16])
+                           for pose_cam, cam in zip(bundle.poses_train, bundle.cams_train)])
+    pool = pool.astype(np.float32)
+    if pool.shape[0] > max_poses:
+        pool = pool[rng.choice(pool.shape[0], max_poses, replace=False)]
+    return pool

@@ -1,4 +1,6 @@
-"""Posenet training and evaluation for the single-frame path.
+"""Posenet training and evaluation for the single-frame path, for any of
+the single-frame posenets (``mlp``, ``gcn``, ``videopose``: (B, 16, 2) in,
+(B, 16, 3) out).
 
 Port of ``dhaug_tpu/train/posenet.py`` (the MSE step, the flip duplicate as
 a second full optimizer step, ``train_epoch_scan``'s permutation draw, and
@@ -70,6 +72,26 @@ def _per_sample_metrics(outputs_3d, targets_3d):
     return err_mm.mean(dim=-1), p_mpjpe_per_sample(out, tgt) * 1000.0, err_mm
 
 
+def _forward(model, x, flip: bool):
+    """Eval-mode prediction; ``flip`` averages it with the mirrored
+    prediction of the mirrored input."""
+    out = model(x)
+    if flip:
+        out = (out + flip_pose(model(flip_pose(x)))) / 2.0
+    return out
+
+
+@torch.no_grad()
+def predict(model, poses_2d, batch_size: int, flip: bool = False) -> torch.Tensor:
+    """Eval-mode predictions for all of ``poses_2d``, in batches, on the
+    model's device."""
+    device = next(model.parameters()).device
+    model.eval()
+    dev2d = torch.as_tensor(poses_2d, device=device)
+    return torch.cat([_forward(model, dev2d[s:s + batch_size], flip)
+                      for s in range(0, dev2d.shape[0], batch_size)])
+
+
 @torch.no_grad()
 def evaluate(model, poses_2d, poses_3d, batch_size: int,
              flip: bool = False) -> Dict[str, float]:
@@ -85,10 +107,7 @@ def evaluate(model, poses_2d, poses_3d, batch_size: int,
         return {k: float("nan") for k in ("p1", "p2", "pck", "auc")}
     p1s, p2s, errs = [], [], []
     for s in range(0, n, batch_size):
-        x = dev2d[s:s + batch_size]
-        out = model(x)
-        if flip:
-            out = (out + flip_pose(model(flip_pose(x)))) / 2.0
+        out = _forward(model, dev2d[s:s + batch_size], flip)
         p1, p2, err = _per_sample_metrics(out, dev3d[s:s + batch_size])
         p1s.append(p1)
         p2s.append(p2)

@@ -1,4 +1,4 @@
-"""Optimizer constructors, gradient clipping and learning-rate schedule.
+"""Optimizer constructors, gradient clipping and learning-rate schedules.
 
 Port of ``dhaug_tpu/train/state.py``.  Each net keeps its own
 ``torch.optim`` optimizer; a learning-rate change rewrites the optimizer's
@@ -49,3 +49,14 @@ def lambda_lr(base_lr: float, epoch: int, nepoch: int, nepoch_fix: int = 0) -> f
     """The reference's LambdaLR linear decay (utils/utils.py:174-178):
     lr = base * (1 - max(0, epoch - fix) / (nepoch - fix + 1))."""
     return base_lr * (1.0 - max(0, epoch - nepoch_fix) / float(nepoch - nepoch_fix + 1))
+
+
+def step_exp_lr(base_lr: float, step: int, decay_step: int, gamma: float) -> float:
+    """The baseline runner's exponential decay (utils/utils.py:115-119):
+    lr = base * gamma ** (step / decay_step)."""
+    return base_lr * gamma ** (step / decay_step)
+
+
+def step_lr(base_lr: float, epoch: int, decay_step: int, gamma: float = 0.1) -> float:
+    """StepLR (utils/utils.py:179-181): lr = base * gamma ** (epoch // decay_step)."""
+    return base_lr * gamma ** (epoch // decay_step)

@@ -8,8 +8,9 @@ written on the card loads on the CPU and the reverse, and loading runs no
 pickled code.  numpy's ``bit_generator.state`` (a dict of strings and
 Python ints, 128-bit ones included) loads under ``weights_only``.
 
-Not ported: the ``orbax`` format (refused with ``NotImplementedError``) and
-``fetch_tree``, which served the TPU runtime; ``.cpu()`` takes its place.
+Not ported: the ``orbax`` format (refused with ``NotImplementedError``),
+reading the JAX package's snapshots, and ``fetch_tree``, which served the
+TPU runtime; ``.cpu()`` takes its place.
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ import os
 from typing import Any, Mapping
 
 import torch
+
+from dhaug_torch.utils.transplant import (is_torch_checkpoint, load_posenet_state_dict,
+                                          load_torch_checkpoint)
 
 
 def _to_cpu(obj: Any) -> Any:
@@ -86,3 +90,27 @@ def restore_into(module: torch.nn.Module, saved: Mapping[str, torch.Tensor]) -> 
                              f"saved {tuple(saved[key].shape)}")
     module.load_state_dict(saved, strict=True)
     return module
+
+
+def load_posenet_checkpoint(path: str) -> dict:
+    """A posenet checkpoint as a dict: a port ``.ckpt`` as written, a
+    reference ``.pth.tar`` as ``{'state_dict': <its posenet state_dict>}``."""
+    if is_torch_checkpoint(path):
+        return {"state_dict": load_torch_checkpoint(path)}
+    return load_snapshot(path)
+
+
+def resolve_posenet_weights(ckpt: Mapping, net: torch.nn.Module) -> torch.nn.Module:
+    """Load a checkpoint's posenet weights into ``net``, strictly by name,
+    from any of the layouts: 'state_dict' (``run_baseline``, a reference
+    ``.pth.tar``), 'model_pos' (``run_fk_gan``'s best-posenet saves) and
+    the full-state 'pos_state' of a ``--snapshot``/``--resume`` snapshot.
+    Shared by ``run_evaluate`` and ``run_baseline``'s ``--pretrain`` warm
+    start."""
+    saved = ckpt.get("state_dict", ckpt.get("model_pos"))
+    if saved is None and "pos_state" in ckpt:
+        saved = ckpt["pos_state"]["model"]
+    if saved is None:
+        raise SystemExit(f"unsupported checkpoint format: keys {sorted(ckpt)} (expected "
+                         "'state_dict', 'model_pos', or a full-state 'pos_state')")
+    return load_posenet_state_dict(net, saved)

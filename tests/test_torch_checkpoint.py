@@ -67,7 +67,7 @@ def test_stop_and_resume_is_bit_identical(run_a, tmp_path):
     for suffix in ("best_dhp_p1", "best_h36m_p1"):
         best = load_ckpt(os.path.join(a["run_dir"], f"ckpt_{suffix}.ckpt"))
         assert set(best) == {"epoch", "model_pos", "posenet_name"}
-        assert best["posenet_name"] == "mlp" and "bn_in.running_var" in best["model_pos"]
+        assert best["posenet_name"] == "mlp" and "batch_norm1.running_var" in best["model_pos"]
 
     b = run_fk_gan.main(RUN + ["--checkpoint", str(tmp_path / "b"), "--resume", snapshot])
     assert len(b["epoch_seconds"]) == 1  # only epoch 2 ran

@@ -1,6 +1,7 @@
 """The slice as a whole: ``python -m dhaug_torch.run_fk_gan`` on the CPU at
-tiny widths on the repo's fixtures, the package's independence from JAX, and
-the flags it refuses."""
+tiny widths on the repo's fixtures (the MLP with the GAN; gcn and videopose
+with the GAN; the normal and NO_enhance modes; ``--pretrain``), the
+package's independence from JAX, and the flags it refuses."""
 import os
 import subprocess
 import sys
@@ -76,7 +77,7 @@ def test_no_jax_in_the_port():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
     assert bad == "[]"
-    assert int(n_modules) >= 36
+    assert int(n_modules) >= 43
 
 
 def test_device_cuda_without_a_card_raises():
@@ -90,12 +91,12 @@ def test_device_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--data_enhancement_method", "normal"],
-    ["--data_enhancement_method", "NO_enhance"],
+    ["--bf16_trunk", "true"],
+    ["--synthetic_data", "true"],
     ["--single_or_multi_train_mode", "multi"],
-    ["--posenet_name", "videopose"],
+    ["--posenet_name", "mulit_farme_videopose"],
     ["--ckpt_format", "orbax"],
-    ["--evaluate", "x.ckpt"],
+    ["--model_parallel_devices", "2"],
     ["--record_all_picture", "true"],
     ["--data_parallel_devices", "2"],
 ])
@@ -136,3 +137,68 @@ def test_prepare_data_matches_jax(extra):
                                           err_msg=f"{name}.{field}")
     np.testing.assert_array_equal(t.mpi3d.poses_3d, j.mpi3d.poses_3d)
     np.testing.assert_array_equal(t.mpi3d.poses_2d, j.mpi3d.poses_2d)
+
+
+# tiny in-process epochs: 1200 training frames (--downsample 4) in batches
+# of 256, so 4 GAN iterations an epoch
+SMALL = ["--lr_p", "1e-3", "--keypoints", "gt", "--batch_size", "256", "--downsample", "4",
+         "--additional_train_epoch", "0", "--warmup", "0", "--stages", "1",
+         "--Gen_DenseDim", "32", "--Dis_DenseDim_3D", "32", "--Dis_DenseDim_2D", "32",
+         "--data_root", REPO, "--device", "cpu"]
+
+
+@pytest.fixture
+def one_intra_op_thread():
+    """In-process runs are too small to gain from torch's intra-op threads;
+    under a parallel test run those threads oversubscribe the cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("flags,fake_pass", [
+    (["--posenet_name", "gcn", "--epochs", "2"], True),
+    (["--posenet_name", "videopose", "--epochs", "2"], True),
+    (["--data_enhancement_method", "normal", "--generator_whole_number", "64",
+      "--posenet_name", "mlp", "--epochs", "1"], True),
+    (["--data_enhancement_method", "NO_enhance", "--posenet_name", "gcn", "--epochs", "1"],
+     False),
+], ids=["gcn", "videopose", "normal", "NO_enhance"])
+def test_tiny_epochs_of_every_single_frame_posenet_and_mode(flags, fake_pass, tmp_path,
+                                                            one_intra_op_thread):
+    from dhaug_torch import run_fk_gan
+    out = run_fk_gan.main(SMALL + flags + ["--checkpoint", str(tmp_path)])
+    for scores in out["scores"].values():
+        assert all(np.isfinite(v) and v > 0 for v in scores.values())
+    assert (out["gan"] is not None) == ("--data_enhancement_method" not in flags)
+    assert type(out["posenet"]).__name__ == {
+        "gcn": "SemGCN", "videopose": "TemporalPoseNet", "mlp": "LinearModel"}[flags[
+            flags.index("--posenet_name") + 1]]
+    log = open(os.path.join(out["run_dir"], "log.txt")).read().splitlines()
+    rows = log[log.index("epoch\tlr\terror_h36m_p1\terror_h36m_p2\terror_3dhp_p1\t"
+                         "error_3dhp_p2\tPCK\tAUC") + 1:]
+    rows = [r for r in rows if not r.startswith("==>")]
+    # a '_fake' row after each posenet pass on fakes, then the epoch's row
+    last_epoch = str(len(out["epoch_seconds"]) - 1)
+    assert [r.split("\t")[0] for r in rows].count(last_epoch) == (2 if fake_pass else 1)
+    for name in ("ckpt_best_dhp_p1.ckpt", "ckpt_best_h36m_p1.ckpt"):
+        assert os.path.isfile(os.path.join(out["run_dir"], name))
+
+
+def test_pretrain_evaluates_the_checkpoint_and_trains_nothing(tmp_path, one_intra_op_thread):
+    import torch
+
+    from dhaug_torch import run_evaluate, run_fk_gan
+    from dhaug_torch.models.factory import make_posenet
+    from dhaug_torch.utils.checkpoint import save_ckpt
+    torch.manual_seed(0)
+    path = save_ckpt({"model_pos": make_posenet("mlp", stages=1).state_dict(),
+                      "posenet_name": "mlp"}, str(tmp_path), suffix="best_h36m_p1")
+    got = run_fk_gan.main(SMALL + ["--posenet_name", "mlp", "--pretrain", "true",
+                                   "--evaluate", path, "--checkpoint", str(tmp_path / "runs")])
+    want = run_evaluate.main(["--evaluate", path, "--stages", "1", "--batch_size", "256",
+                              "--downsample", "4", "--data_root", REPO, "--device", "cpu"])
+    assert got["h36m"] == want["h36m"] and got["dhp"] == want["dhp"]
+    assert not (tmp_path / "runs").exists()  # no run directory: nothing trained

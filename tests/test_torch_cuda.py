@@ -40,8 +40,9 @@ def _misaligned(t):
 
 
 # the training batch, ragged ones (1000, and 1027: a last tile of 3 poses),
-# the synthesis batch; "1027m": inputs 4 bytes past a 16-byte boundary
-FK_CASES = [1, 1000, 1024, 1027, 8192, "1027m"]
+# the synthesis batch, the traditional augmenter's 10000 (a last tile of 16);
+# "1027m": inputs 4 bytes past a 16-byte boundary
+FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m"]
 
 
 def _fk_case(case, seed_offset, device):

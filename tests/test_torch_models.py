@@ -124,14 +124,14 @@ def test_linear_model_train_mode_and_running_stats():
     port.train()
     _close(port(torch.from_numpy(x)), ref)
     new = _np_tree(mutated["batch_stats"])
-    _close(port.bn_in.running_mean, new["BatchNorm_0"]["mean"], tol=1e-6)
-    _close(port.bn_in.running_var, new["BatchNorm_0"]["var"], tol=1e-6)
-    for i, stage in enumerate(port.stages):
+    _close(port.batch_norm1.running_mean, new["BatchNorm_0"]["mean"], tol=1e-6)
+    _close(port.batch_norm1.running_var, new["BatchNorm_0"]["var"], tol=1e-6)
+    for i, stage in enumerate(port.linear_stages):
         s = new[f"_LinearStage_{i}"]
-        _close(stage.bn1.running_mean, s["BatchNorm_0"]["mean"], tol=1e-6)
-        _close(stage.bn1.running_var, s["BatchNorm_0"]["var"], tol=1e-6)
-        _close(stage.bn2.running_mean, s["BatchNorm_1"]["mean"], tol=1e-6)
-        _close(stage.bn2.running_var, s["BatchNorm_1"]["var"], tol=1e-6)
+        _close(stage.batch_norm1.running_mean, s["BatchNorm_0"]["mean"], tol=1e-6)
+        _close(stage.batch_norm1.running_var, s["BatchNorm_0"]["var"], tol=1e-6)
+        _close(stage.batch_norm2.running_mean, s["BatchNorm_1"]["mean"], tol=1e-6)
+        _close(stage.batch_norm2.running_var, s["BatchNorm_1"]["var"], tol=1e-6)
 
 
 def test_he_normal_matches_flax_distribution():
