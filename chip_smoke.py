@@ -12,9 +12,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 3. kernels -- holds each kernel to its plain PyTorch version on the card:
               the FK kernels B1/B2 at B = 1024 (the training path's batch),
               1000, 1, 1027 (ragged), 8192 (the synthesis batch), 10000
-              (the traditional augmenter's) and on inputs 4 bytes past a
-              16-byte boundary, and times them at
-              B = 1024 and 8192 as device time a launch (torch.profiler),
+              (the traditional augmenter's), video mode's clip batches
+              4608, 13824 and 72 and on inputs 4 bytes past a 16-byte
+              boundary, and times them at
+              B = 1024, 4608 and 8192 as device time a launch (torch.profiler),
               loop of launches and host time a call, beside a launch floor
               (a one-element ``zero_()``); the trunk kernel B3 at D = 1000 and
               B = 8192 (the synthesis batch), 1000 and 1, and at D = 64,
@@ -47,9 +48,18 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               ``dhaug_torch.run_evaluate`` on its best checkpoint (its best
               H36M P1 within 0.05 mm), on the gcn run's best checkpoint and
               on a ``.pth.tar`` of it (the same scores), with 3DPW scoring
-              of a seeded fake SMPL-24 npz.
+              of a seeded fake SMPL-24 npz;
+10. video  -- the README's video-mode command (``mulit_farme_videopose
+              --single_or_multi_train_mode multi --architecture 3,3
+              --batch_size 512``, every net at full width) for 3 epochs:
+              B1 at 4608 poses every GAN iteration, B1 + B2 every 5th, the
+              motion critics from epoch 1, the posenet in epoch 2; then
+              ``run_evaluate`` on its best checkpoint (its best H36M P1
+              within 0.05 mm); then 2 epochs of ``mulit_farme_poseformer``
+              (windowed evaluation) and ``run_evaluate`` on its checkpoint.
 
-Each run of phases 7-9 is then run once more under torch.profiler, outside
+Each run of phases 7-10 (but the poseformer's) is then run once more under
+torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Then it prints the ``nvidia-smi`` name/power-limit line, one ``kernels``
@@ -90,10 +100,12 @@ BWD_RTOL = 1e-5
 # FK kernel checks (batch, inputs 4 bytes past a 16-byte boundary) and the
 # batches timed: the training path's 1024, a ragged last tile, the
 # synthesis batch 8192, the traditional augmenter's 10000 (312 full tiles of
-# 32 poses and one of 16)
+# 32 poses and one of 16), and video mode's clip batches B x F: 512 x 9
+# (the README's --architecture 3,3 --batch_size 512), 512 x 27 (the default
+# 3,3,3) and 8 x 9 (two full tiles and one of 8)
 FK_CHECKED = ((1024, False), (1000, False), (1, False), (1027, False), (8192, False),
-              (1027, True), (10000, False))
-FK_TIMED_B = (1024, 8192)
+              (1027, True), (10000, False), (4608, False), (13824, False), (72, False))
+FK_TIMED_B = (1024, 4608, 8192)
 
 # the synthesis path: the generator width, the CLI's default batch, 8 batches
 SYNTH_D = 1000
@@ -101,6 +113,14 @@ SYNTH_B = 8192
 SYNTH_POSES = 8 * SYNTH_B
 SCALER_RANGE = (0.8, 1.2)    # 1 + randint(-200, 200) / 1000
 BONE_ATOL = 1e-5             # metres: fp32 camera coordinates reach ~20 m
+
+# the JAX README's video-mode command, cut to 3 epochs: the motion critics
+# from epoch 1, the posenet in epoch 2
+VIDEO_ARGS = ["--note", "chip_smoke", "--posenet_name", "mulit_farme_videopose",
+              "--single_or_multi_train_mode", "multi", "--architecture", "3,3",
+              "--batch_size", "512", "--data_enhancement_method", "GAN", "--epochs", "2",
+              "--warmup", "0", "--single_dis_warmup_epoch", "1", "--additional_train_epoch", "0",
+              "--device", "cuda"]
 
 MAIN_ARGS = ["--note", "chip_smoke", "--posenet_name", "mlp", "--lr_p", "1e-3",
              "--keypoints", "gt", "--batch_size", "1024",
@@ -214,7 +234,7 @@ def fk_bounds(B: int):
 
 
 def time_fk_kernels(fk_cuda, device) -> dict:
-    """B1 and B2 at B = 1024 and 8192, three ways: device µs a launch
+    """B1 and B2 at B = 1024, 4608 and 8192, three ways: device µs a launch
     (torch.profiler), the loop of launches (CUDA events over 200 calls,
     wrapper included) and host µs a call; the same for a launch floor, a
     one-element ``zero_()``."""
@@ -237,9 +257,9 @@ def time_fk_kernels(fk_cuda, device) -> dict:
 
 def phase_kernels(fk_plain, fk_cuda, device):
     """Both kernels against the plain FK (forward) and autograd through it
-    (backward) at B = 1024, 1000, 1, 1027 (a ragged last tile), 8192 and on
-    inputs 4 bytes past a 16-byte boundary; then timings (time_fk_kernels)
-    and the plain versions' at B = 1024."""
+    (backward) at the FK_CHECKED batches (ragged last tiles, video clip
+    batches, inputs 4 bytes past a 16-byte boundary among them); then
+    timings (time_fk_kernels) and the plain versions' at B = 1024."""
     import torch
     fwd_err, bwd_err = 0.0, 0.0
     for B, shift in FK_CHECKED:
@@ -483,12 +503,9 @@ def phase_main(fk_cuda, trunk_cuda, device):
 
 def phase_profile(gan, device, iters: int = 10):
     """Where a GAN iteration's time goes at the main path's shapes (batch
-    1024, nets 1000 wide): host wall per iteration (unprofiled), and from
-    torch.profiler the device time of each kernel, whose sum over that wall
-    is the device's busy share.  Runs after the main path, on its trained
-    nets, outside the counted run."""
+    1024, nets 1000 wide), on its trained nets, outside the counted run
+    (profile_iterations)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from dhaug_torch.ops.camera import project_to_2d, world_to_camera_batch
 
     B, cam = 1024, 3
@@ -508,6 +525,17 @@ def phase_profile(gan, device, iters: int = 10):
                 gan.generator_step(bone_len, cam_idx, g)
         torch.cuda.synchronize()
 
+    emit({"phase": "profile", **profile_iterations(run, iters)})
+
+
+def profile_iterations(run, iters: int) -> dict:
+    """``run(n)`` runs n GAN iterations and synchronizes: after a warm-up,
+    the host wall per iteration (unprofiled), and from torch.profiler the
+    device time of each kernel, whose sum over that wall is the device's
+    busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     run(5)  # warm-up
     t0 = time.perf_counter()
     run(iters)
@@ -526,13 +554,42 @@ def phase_profile(gan, device, iters: int = 10):
           for name in ("fk_forward_kernel", "fk_backward_kernel")
           for e in kernels if name in e.key}
     top = sorted(kernels, key=dev, reverse=True)[:6]
-    emit({"phase": "profile", "iters": iters, "gan_iter_ms": wall_ms / iters,
-          "profiled_iter_ms": prof_wall_us / 1e3 / iters,
-          "device_kernel_ms_per_iter": busy_us / 1e3 / iters,
-          "device_busy_share": busy_us / 1e3 / wall_ms,
-          "fk_kernel_device_us_per_call_and_calls_per_iter": fk,
-          "top_kernels_device_ms_per_iter": [[e.key[:90], dev(e) / 1e3 / iters, e.count / iters]
-                                             for e in top]})
+    return {"iters": iters, "gan_iter_ms": wall_ms / iters,
+            "profiled_iter_ms": prof_wall_us / 1e3 / iters,
+            "device_kernel_ms_per_iter": busy_us / 1e3 / iters,
+            "device_busy_share": busy_us / 1e3 / wall_ms,
+            "fk_kernel_device_us_per_call_and_calls_per_iter": fk,
+            "top_kernels_device_ms_per_iter": [[e.key[:90], dev(e) / 1e3 / iters,
+                                                e.count / iters] for e in top]}
+
+
+def profile_video_iterations(gan, device, iters: int = 10) -> None:
+    """Video GAN iterations at the README command's shapes (512 clips of 9
+    frames, every net 1000 wide), with the motion critics on and off, on
+    the video run's trained nets, outside the counted run."""
+    import torch
+    from dhaug_torch.ops.camera import project_to_2d, world_to_camera_batch
+
+    B, F, cam = 512, gan.gen_cfg.video_frames, 3
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    q, t, intr = gan.cam_quats[cam], gan.cam_trans[cam], gan.cam_intrs[cam]
+    bl = torch.linspace(0.15, 0.6, 15, device=device).expand(B, 15).contiguous()
+    with torch.no_grad():
+        real = world_to_camera_batch(gan.synth_fake(bl, g).reshape(B * F, 16, 3), q[None],
+                                     t[None])
+        clip2d = project_to_2d(real, intr[None].expand(B * F, 9)).reshape(B, F, 16, 2)
+    clip3d = real.reshape(B, F, 16, 3)
+    cam16 = torch.cat([intr, q, t]).expand(B, 16).contiguous()
+    for use_motion in (True, False):
+        def run(n):
+            for it in range(n):
+                cam_idx, bone_len, *_ = gan.critics_step(clip3d, cam16, clip2d, g, use_motion)
+                if it % 5 == 4:
+                    gan.generator_step(bone_len, cam_idx, g, use_motion)
+            torch.cuda.synchronize()
+        emit({"phase": "profile", "path": "video", "clips": B, "frames": F,
+              "use_motion": use_motion, **profile_iterations(run, iters)})
 
 
 def phase_synth(fk_cuda, trunk_cuda, run_dir: Path, device):
@@ -749,6 +806,60 @@ def phase_baseline(fk_cuda, trunk_cuda, gcn_run_dir: Path):
     return launches
 
 
+def phase_video(fk_cuda, trunk_cuda):
+    """The README's video-mode command (mulit_farme_videopose, batch 512,
+    clips of 9 frames, every net at full width), 3 epochs: 27 GAN
+    iterations on the fixture's 40 sequences (27 critic-phase B1 launches
+    at 4608 poses) and generator updates at global iterations 4, 9, 14, 19,
+    24 (B1 + B2 each); then run_evaluate on its best checkpoint (its best
+    H36M P1 within 0.05 mm).  Then mulit_farme_poseformer for 2 epochs, the
+    motion critics on from epoch 0: 18 iterations, 3 generator updates, and
+    the windowed evaluation."""
+    import torch
+    from dhaug_torch import run_evaluate, run_fk_gan
+    launches = {}
+    for label, args, want in (
+            ("video", VIDEO_ARGS, {"fwd": 27 + 5, "bwd": 5}),
+            ("video_poseformer", with_flags(VIDEO_ARGS, posenet_name="mulit_farme_poseformer",
+                                            single_dis_warmup_epoch=0),
+             {"fwd": 18 + 3, "bwd": 3})):
+        args = with_flags(args, data_root=REPO, checkpoint=REPO / "_runs" / f"chip_smoke_{label}")
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        result = run_fk_gan.main(args)
+        seconds = time.perf_counter() - t0
+        launches[label] = read_counts(fk_cuda, trunk_cuda)
+        metrics = check_scores(label, result["scores"])
+        scalars = result["epoch_scalars"]
+        emit({"phase": "video", "path": label, "seconds": seconds,
+              "epoch_seconds": result["epoch_seconds"], "launches": launches[label],
+              "best_h36m_p1": result["best_h36m"], **metrics,
+              "wasserstein": {k: v for k, v in scalars.items() if "Wasserstein" in k},
+              "g_cost": scalars.get("G_cost")})
+        if {k: launches[label][k] for k in want} != want:
+            raise AssertionError(f"{label}: launches {launches[label]}, expected {want}")
+        for k, v in scalars.items():
+            if not all(math.isfinite(x) for x in v):
+                raise AssertionError(f"{label}: GAN scalar {k} not finite: {v}")
+        run_dir = Path(result["run_dir"])
+        check_files(label, run_dir, ("ckpt_resume_latest.ckpt", "ckpt_best_dhp_p1.ckpt",
+                                     "ckpt_best_h36m_p1.ckpt"))
+        ev = run_evaluate.main(["--evaluate", str(run_dir / "ckpt_best_h36m_p1.ckpt"),
+                                "--architecture", "3,3", "--batch_size", "512",
+                                "--data_root", str(REPO), "--device", "cuda"])
+        gap = abs(ev["h36m"]["p1"] - result["best_h36m"])
+        emit({"phase": "video", "path": label, "evaluate_h36m_p1": ev["h36m"]["p1"],
+              "evaluate_gap_mm": gap, "evaluate_dhp_p1": ev["dhp"]["p1"],
+              "actions": len(ev.get("actions", {}))})
+        if not gap <= 0.05:
+            raise AssertionError(f"{label}: evaluate gives H36M P1 {ev['h36m']['p1']}, the "
+                                 f"run's best was {result['best_h36m']}")
+        if label == "video":
+            profile_run(label, lambda: run_fk_gan.main(args), seconds)
+            profile_video_iterations(result["gan"], torch.device("cuda", 0))
+    return launches
+
+
 def main() -> int:
     if not (REPO / "dhaug_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the dhaug_torch package is not beside this script",
@@ -790,23 +901,29 @@ def main() -> int:
     posenet_launches, posenet_dirs = phase_posenets(fk_cuda, trunk_cuda)
     augment_launches = phase_augment(fk_cuda, trunk_cuda)
     baseline_launches = phase_baseline(fk_cuda, trunk_cuda, posenet_dirs["gcn"])
+    video_launches = phase_video(fk_cuda, trunk_cuda)
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
-             **augment_launches, "baseline": baseline_launches}
+             **augment_launches, "baseline": baseline_launches, **video_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 
     def fk_times(key):
-        """ms: device time a launch at B = 1024; beside it B = 8192, the loop
-        of launches, host µs a call and the launch floor."""
+        """ms: device time a launch at B = 1024; beside it B = 4608 (the
+        video clip batch) and 8192, the loop of launches, host µs a call
+        and the launch floor."""
+        i = 0 if key == "fwd" else 1
         return {"ms": times[f"{key}_device_us_1024"] / 1e3,
+                "ms_at_4608": times[f"{key}_device_us_4608"] / 1e3,
                 "ms_at_8192": times[f"{key}_device_us_8192"] / 1e3,
                 "loop_ms": times[f"{key}_loop_ms_1024"],
+                "loop_ms_at_4608": times[f"{key}_loop_ms_4608"],
                 "loop_ms_at_8192": times[f"{key}_loop_ms_8192"],
                 "host_us_per_call": times[f"{key}_host_us_1024"],
                 "launch_floor_ms": times["floor_device_us"] / 1e3,
                 "launch_floor_loop_ms": times["floor_loop_ms"],
-                "bound_ms_at_8192": fk_bounds(8192)[0 if key == "fwd" else 1][0]}
+                "bound_ms_at_4608": fk_bounds(4608)[i][0],
+                "bound_ms_at_8192": fk_bounds(8192)[i][0]}
     kernels = [
         {"name": "fk_forward_kernel", "route": "cuda", "source": source,
          "replaces": "dhaug_tpu/ops/fk_pallas.py:105", "launches": main_launches["fwd"],

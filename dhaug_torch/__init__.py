@@ -1,7 +1,7 @@
 """dhaug_torch: the PyTorch/CUDA port of DH-AUG's five posenets, its
-single-frame training (the GAN, traditional and no-augmentation modes,
-checkpoints and resume), its baseline and evaluation CLIs, and its bulk pose
-synthesis.
+single-frame training (the GAN, traditional and no-augmentation modes) and
+video-mode training (the clip GAN with its motion critics), with checkpoints
+and resume, its baseline and evaluation CLIs, and its bulk pose synthesis.
 
 The package mirrors ``dhaug_tpu``'s module names (``ops.fk``, ``gan.wgan``,
 ``train.posenet``, ...) so each piece has an obvious counterpart, but imports

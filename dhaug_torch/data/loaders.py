@@ -1,6 +1,6 @@
 """Host-side data pipeline: npz ingestion, flattening, frame-level containers.
 
-A numpy copy of what the single-frame path uses from
+A numpy copy of what the training paths use from
 ``dhaug_tpu/data/loaders.py`` (read_3d_data, create_2d_data, fetch and the
 PoseDataset / PoseBuffer / PoseTarget containers).  The training loops move
 the concatenated arrays to the device once and batch them there with index
@@ -79,12 +79,18 @@ def create_2d_data(data_path, dataset):
 
 
 def fetch(subjects, dataset, keypoints, action_filter=None, stride: int = 1,
-          train: bool = True):
+          train: bool = True, with_extrinsics: bool = True, per_frame_cam: bool = True,
+          min_motion_mm: float | None = None):
     """Flatten (subject, action, camera) into parallel per-sequence lists of
-    camera-space 3D (N, 16, 3), 2D (N, 16, 2), per-frame 16-float camera
-    records (intrinsic | orientation | translation) and per-frame action
-    names: the reference's 'single' mode of utils/data_utils.py:42-126.
-    ``stride`` subsamples the training frames."""
+    camera-space 3D (N, 16, 3), 2D (N, 16, 2), camera records and per-frame
+    action names (utils/data_utils.py:42-126).  A camera record is the
+    intrinsic(9), followed by orientation(4) | translation(3) when
+    ``with_extrinsics``; ``per_frame_cam`` repeats it per frame (the
+    reference's 'single' mode), else each sequence keeps one ('multi').
+    ``stride`` subsamples the training frames; ``min_motion_mm`` (the
+    --video_over_200mm filter) then keeps, of the training frames, the first
+    and each one whose largest joint move from the last kept frame reaches
+    it."""
     out_poses_3d, out_poses_2d, out_cam, out_actions = [], [], [], []
     for subject in subjects:
         for action in keypoints[subject].keys():
@@ -103,13 +109,31 @@ def fetch(subjects, dataset, keypoints, action_filter=None, stride: int = 1,
                     raise ValueError(f"{subject}/{action} cam {i}: 2D has "
                                      f"{poses_2d[i].shape[0]} frames < 3D {n3}")
                 cam = anim["cameras"][i]
-                record = np.concatenate([cam["intrinsic"], cam["orientation"],
-                                         cam["translation"]]).astype(np.float32)
+                parts = [cam["intrinsic"]]
+                if with_extrinsics:
+                    parts += [cam["orientation"], cam["translation"]]
+                record = np.concatenate(parts).astype(np.float32)
                 sl = slice(None, None, stride if train else 1)
                 out_poses_3d.append(np.asarray(pose_3d, np.float32)[sl])
                 out_poses_2d.append(np.asarray(poses_2d[i][:n3], np.float32)[sl])
-                out_cam.append(np.tile(record[None], (n3, 1))[sl])
+                out_cam.append(np.tile(record[None], (n3, 1))[sl] if per_frame_cam else record)
                 out_actions.append([action.split(" ")[0]] * len(out_poses_3d[-1]))
+
+    if min_motion_mm is not None and train:
+        # the reference's `continue` skips its `prev_kp3d = kp3d` update
+        # (utils/data_utils.py:110-122), so the motion is measured from the
+        # last KEPT frame
+        for i, seq3d in enumerate(out_poses_3d):
+            keep, prev = [0], seq3d[0]
+            for f in range(1, seq3d.shape[0]):
+                if np.any(np.linalg.norm(prev - seq3d[f], axis=1) * 1000.0 >= min_motion_mm):
+                    keep.append(f)
+                    prev = seq3d[f]
+            out_poses_3d[i] = seq3d[keep]
+            out_poses_2d[i] = out_poses_2d[i][keep]
+            out_actions[i] = [out_actions[i][k] for k in keep]
+            if per_frame_cam:
+                out_cam[i] = out_cam[i][keep]
     return out_poses_3d, out_poses_2d, out_cam, out_actions
 
 

@@ -35,6 +35,15 @@ _SCALAR_KEYS = ("3d_d_real", "3d_d_fake", "3d_wasserstein", "3d_d_cost",
                 "2d_d_real", "2d_d_fake", "2d_wasserstein", "2d_d_cost")
 
 
+def reskin_rows(poses_3d: torch.Tensor, cams: torch.Tensor,
+                lengths_tree: torch.Tensor):
+    """Each camera-space pose (N, 16, 3) re-skinned to its row of bone
+    lengths (N, 15) (tree order) and projected through its camera's
+    intrinsics (the first 9 columns of ``cams`` (N, >=9))."""
+    new3d = reskin_pose(poses_3d, lengths_tree)
+    return new3d, project_to_2d(new3d, cams[:, :9])
+
+
 @torch.no_grad()
 def reskin_dataset(ds: PoseDataset, templates: np.ndarray, rng: np.random.Generator,
                    device) -> PoseDataset:
@@ -48,9 +57,10 @@ def reskin_dataset(ds: PoseDataset, templates: np.ndarray, rng: np.random.Genera
     for s in range(0, n, _RESKIN_CHUNK):
         e = min(s + _RESKIN_CHUNK, n)
         idx = rng.integers(0, templates.shape[0], size=_RESKIN_CHUNK)[: e - s]
-        new3d = reskin_pose(poses_3d[s:e], tmpl[torch.as_tensor(idx, device=device)])
+        new3d, new2d = reskin_rows(poses_3d[s:e], cams[s:e],
+                                   tmpl[torch.as_tensor(idx, device=device)])
         out3d.append(new3d)
-        out2d.append(project_to_2d(new3d, cams[s:e, :9]))
+        out2d.append(new2d)
     return PoseDataset(torch.cat(out3d), torch.cat(out2d), ds.cams)
 
 

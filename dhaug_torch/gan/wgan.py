@@ -1,6 +1,7 @@
-"""WGAN-GP steps of the single-frame FK-GAN.
+"""WGAN-GP steps of the FK-GAN.
 
-Port of ``dhaug_tpu/gan/wgan.py:45-327``:
+Port of ``dhaug_tpu/gan/wgan.py:45-327`` (the video mode's steps, which use
+:func:`critic_step` too, are in ``gan/video.py``):
 
 * :func:`critic_step` -- one critic update minimizing D(fake) - D(real) + GP.
   Real, fake and the GP interpolates go through the critic as one stacked
@@ -36,6 +37,8 @@ class GanHyper(NamedTuple):
     lambda_gp: float = 10.0         # --GAN_LAMBDA
     w3d: float = 1.0                # --GAN_3d_loss_weight
     w2d: float = 0.2                # --GAN_2d_loss_weight
+    w3d_motion: float = 1.0         # --GAN_3d_motion_loss_weight
+    w2d_motion: float = 1.0         # --GAN_2d_motion_loss_weight
     flip: bool = True               # --flip_GAN_model_input
     bone_len_scaler: str = "different"
     noise_dim: int = 128
@@ -66,14 +69,18 @@ def _step(opt: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:
 def critic_step(critic: torch.nn.Module, opt: torch.optim.Optimizer,
                 real: torch.Tensor, fake: torch.Tensor, lambda_gp: float,
                 generator: Optional[torch.Generator] = None,
-                alpha: Optional[torch.Tensor] = None) -> dict:
-    """One critic update.  ``alpha`` (B, 1) overrides the GP interpolation
-    draw.  Returns the logged scalars as 0-d tensors."""
+                alpha: Optional[torch.Tensor] = None, gp_granularity: int = 1) -> dict:
+    """One critic update.  ``gp_granularity`` g splits each sample into g
+    GP rows: the interpolation alpha is drawn per row and the gradient norm
+    taken per row (the motion-2D critic interpolates per frame).  ``alpha``
+    (B x g, 1) overrides the draw.  Returns the logged scalars as 0-d
+    tensors."""
     B = real.shape[0]
-    r = real.reshape(B, -1)
-    f = fake.reshape(B, -1)
+    Bg = B * gp_granularity
+    r = real.reshape(Bg, -1)
+    f = fake.reshape(Bg, -1)
     if alpha is None:
-        alpha = torch.rand((B, 1), generator=generator, device=r.device, dtype=r.dtype)
+        alpha = torch.rand((Bg, 1), generator=generator, device=r.device, dtype=r.dtype)
     interp = (alpha * r + (1.0 - alpha) * f).requires_grad_(True)
     stacked = torch.cat([r, f, interp]).reshape((3 * B,) + tuple(real.shape[1:]))
     scores = critic(stacked)

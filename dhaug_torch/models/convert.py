@@ -17,7 +17,9 @@ import torch
 from torch import nn
 
 from dhaug_torch.models.blocks import DensePrelude, DenseResBlock, ResTower
-from dhaug_torch.models.discriminators import Fk2DDiscriminator, Fk3DDiscriminator
+from dhaug_torch.models.discriminators import (Fk2DDiscriminator, Fk3DDiscriminator,
+                                              MotionFk2DDiscriminator,
+                                              MotionFk3DDiscriminator)
 from dhaug_torch.models.generator import FkGeneratorNet
 from dhaug_torch.models.posenets import (Block, LinearModel, PoseFormer, SemGCN, SemGraphConv,
                                         TemporalPoseNet)
@@ -61,6 +63,12 @@ def _tower(m: ResTower, p: Mapping, name: str):
         _res_block(block, p[f"DenseResBlock_{i}"], f"{name}/DenseResBlock_{i}")
 
 
+def _merge_head(net, params: Mapping):
+    _prelude(net.merge, params["DensePrelude_0"], "DensePrelude_0")
+    _res_block(net.merge_block, params["DenseResBlock_0"], "DenseResBlock_0")
+    _dense(net.out, params["Dense_0"], "Dense_0")
+
+
 def load_generator(net: FkGeneratorNet, params: Mapping) -> FkGeneratorNet:
     _keys(params, ["DensePrelude_0", "DenseResBlock_0", "DenseResBlock_1",
                    "DenseResBlock_2", "Dense_0"], "generator")
@@ -76,9 +84,7 @@ def load_d3d(net: Fk3DDiscriminator, params: Mapping) -> Fk3DDiscriminator:
                    "DenseResBlock_0", "Dense_0"], "d3d")
     _tower(net.kcs_tower, params["ResTower_0"], "ResTower_0")
     _tower(net.pose_tower, params["ResTower_1"], "ResTower_1")
-    _prelude(net.merge, params["DensePrelude_0"], "DensePrelude_0")
-    _res_block(net.merge_block, params["DenseResBlock_0"], "DenseResBlock_0")
-    _dense(net.out, params["Dense_0"], "Dense_0")
+    _merge_head(net, params)
     return net
 
 
@@ -87,6 +93,28 @@ def load_d2d(net: Fk2DDiscriminator, params: Mapping) -> Fk2DDiscriminator:
     _keys(params, [f"Dense_{i}" for i in range(len(layers))], "d2d")
     for i, layer in enumerate(layers):
         _dense(layer, params[f"Dense_{i}"], f"Dense_{i}")
+    return net
+
+
+def load_md3d(net: MotionFk3DDiscriminator, params: Mapping) -> MotionFk3DDiscriminator:
+    """The motion 3D critic; flax numbers its towers in branch order (KCS,
+    diff-KCS, then the raw-3D and diff-3D towers that are switched on)."""
+    towers = [t for t in (net.kcs_tower, net.kcs_diff_tower, net.pose_tower,
+                          net.pose_diff_tower) if t is not None]
+    names = [f"ResTower_{i}" for i in range(len(towers))]
+    _keys(params, names + ["DensePrelude_0", "DenseResBlock_0", "Dense_0"], "md3d")
+    for name, tower in zip(names, towers):
+        _tower(tower, params[name], name)
+    _merge_head(net, params)
+    return net
+
+
+def load_md2d(net: MotionFk2DDiscriminator, params: Mapping) -> MotionFk2DDiscriminator:
+    _keys(params, ["ResTower_0", "ResTower_1", "DensePrelude_0", "DenseResBlock_0",
+                   "Dense_0"], "md2d")
+    _tower(net.pose_tower, params["ResTower_0"], "ResTower_0")
+    _tower(net.root_diff_tower, params["ResTower_1"], "ResTower_1")
+    _merge_head(net, params)
     return net
 
 

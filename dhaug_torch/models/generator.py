@@ -1,9 +1,11 @@
 """FK-GAN generator: noise -> 35-d head -> angles + root -> DH-FK -> pose.
 
-Port of the single-frame parts of ``dhaug_tpu/models/generator.py``.  The
-head layout quirk is kept: the head emits 35 values, [0:31] fill the 31
-non-structurally-zero slots of the 37-d [34 DOF + 3 global rotation] vector
-in order, value 31 is unused, and [32:35] are the root (tanh x 10).
+Port of ``dhaug_tpu/models/generator.py``.  The head layout quirk is kept:
+the head emits 35 values a frame, [0:31] fill the 31 non-structurally-zero
+slots of the 37-d [34 DOF + 3 global rotation] vector in order, value 31 is
+unused, and [32:35] are the root (tanh x 10).  The video generator
+(``video_frames`` F > 1) emits all F frames of a clip from one noise vector,
+a head of F x 35.
 
 :func:`synthesize_poses` routes the FK through ``ops/fk_cuda`` (the CUDA
 kernels for CUDA tensors, the plain FK for CPU tensors).
@@ -54,16 +56,17 @@ class GeneratorConfig(NamedTuple):
     noise_dim: int = 128
     use_pre_angle: bool = True     # --GAN_whether_use_preAngle
     use_global_rot: bool = True    # --whether_use_RT
+    video_frames: int = 1          # F > 1: the video generator
 
 
 class FkGeneratorNet(nn.Module):
-    """The dense trunk: noise (B, 128) -> head (B, 35)."""
+    """The dense trunk: noise (B, 128) -> head (B, F x 35)."""
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
         self.prelude = DensePrelude(cfg.noise_dim, cfg.dense_dim)
         self.blocks = nn.ModuleList(DenseResBlock(cfg.dense_dim) for _ in range(3))
-        self.head = dense(cfg.dense_dim, cfg.output_dim)
+        self.head = dense(cfg.dense_dim, cfg.video_frames * cfg.output_dim)
 
     def forward(self, noise):
         x = self.prelude(noise)
@@ -103,14 +106,20 @@ def scale_bone_lengths(bone_len: torch.Tensor, scaler8: torch.Tensor) -> torch.T
 
 def synthesize_poses(head: torch.Tensor, bone_len: torch.Tensor,
                      scaler8: torch.Tensor, cfg: GeneratorConfig) -> torch.Tensor:
-    """World poses (B, 16, 3) from the head output (B, 35), FK-order bone
-    lengths (B, 15) and the bone scalers (B, 8)."""
-    angles37, root = head_to_angles(head, cfg)
+    """World poses from the head output (B, F x 35), FK-order bone lengths
+    (B, 15) and the bone scalers (B, 8), which a clip's F frames share
+    (Fk_generator.py:383-390): (B, 16, 3) for F == 1, else (B, F, 16, 3).
+    The B x F poses go through one FK call."""
+    B, F = head.shape[0], cfg.video_frames
+    angles37, root = head_to_angles(head.reshape(B * F, cfg.output_dim), cfg)
     scaled_bl = scale_bone_lengths(bone_len, scaler8)
-    return fk_cuda.fk_world_pose_16(angles37[:, :33].contiguous(),
-                                    scaled_bl.contiguous(),
-                                    angles37[:, 34:37].contiguous(),
-                                    root.contiguous())
+    if F > 1:
+        scaled_bl = scaled_bl.repeat_interleave(F, dim=0)
+    pose16 = fk_cuda.fk_world_pose_16(angles37[:, :33].contiguous(),
+                                      scaled_bl.contiguous(),
+                                      angles37[:, 34:37].contiguous(),
+                                      root.contiguous())
+    return pose16 if F == 1 else pose16.reshape(B, F, 16, 3)
 
 
 def sample_scaler8(batch_size: int, mode: str, generator: torch.Generator,

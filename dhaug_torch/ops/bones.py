@@ -1,6 +1,6 @@
 """Bone-vector algebra, the bone-length re-skin, and KCS critic features.
 
-Port of what the single-frame path uses from ``dhaug_tpu/ops/bones.py``.
+Port of what the training paths use from ``dhaug_tpu/ops/bones.py``.
 Two bone orderings coexist, as in the reference: the FK order (what the
 generator harvests and the critics see) and the H36M kinematic-tree order
 (what the re-skin templates are written in).  Each (16, 15) incidence matrix
@@ -90,12 +90,16 @@ def reskin_pose(pose16: torch.Tensor, new_lengths_tree: torch.Tensor) -> torch.T
     return pose_from_bone_vectors_tree(unit * new_lengths_tree[..., None]) + root
 
 
-def kcs_features(pose16: torch.Tensor) -> torch.Tensor:
-    """The 3D critic's kinematic-chain-space input: 15 inter-bone cosines and
-    15 bone lengths, (..., 16, 3) -> (..., 30)."""
+def kcs_features(pose16: torch.Tensor, with_lengths: bool = True) -> torch.Tensor:
+    """Kinematic-chain-space critic input: 15 inter-bone cosines, followed by
+    the 15 bone lengths when ``with_lengths``, (..., 16, 3) -> (..., 30) or
+    (..., 15).  ``with_lengths=False`` is the motion critics' variant
+    (Fk_discriminator.py:269-377)."""
     vecs = bone_vectors_fk(pose16)
     lens = bone_lengths(vecs)
     va = vecs[..., _KCS_A, :]
     vb = vecs[..., _KCS_B, :]
     cos = torch.sum(va * vb, dim=-1) / (lens[..., _KCS_A] * lens[..., _KCS_B])
-    return torch.cat([cos, lens], dim=-1)
+    if with_lengths:
+        return torch.cat([cos, lens], dim=-1)
+    return cos

@@ -1,6 +1,6 @@
 """Posenet checkpoint evaluation on H36M S9/S11 and MPI-INF-3DHP on PyTorch.
 
-Port of ``run_evaluate.py``'s single-frame branch.  It reads the
+Port of ``run_evaluate.py``.  It reads the
 checkpoints of both port CLIs ('state_dict' from ``run_baseline``,
 'model_pos' from ``run_fk_gan``, and a full-state snapshot's 'pos_state')
 and reference ``ckpt_*.pth.tar`` files under either key; the posenet name
@@ -11,10 +11,16 @@ default) adds the H36M P1 of each action, and ``--Path_3DPW <npz>``
 flip-averaged 3DPW score: SMPL-24 joints are mapped to the H36M-16 layout
 (``data/pw3d.py``) and P1/P2 taken over the 14 mapped joints after
 mean-centring.  Checkpoints of the multi-frame ``mulit_farme_*`` posenets
-are refused until video mode is ported.
+(``--architecture`` must match the run's) are scored as video mode scores
+them: the evaluation twin on whole edge-padded sequences, each sequence
+weighted once (VideoPose), or on centre-frame windows weighted by frame
+(PoseFormer), and ``--action-wise`` regroups those sequences by action;
+their 3DPW scoring is not ported yet and is refused.
 
     python -m dhaug_torch.run_evaluate --evaluate checkpoint/.../ckpt_best.ckpt \\
         --posenet_name videopose
+    python -m dhaug_torch.run_evaluate --evaluate .../ckpt_best_h36m_p1.ckpt \\
+        --posenet_name mulit_farme_videopose --architecture 3,3
 
 Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
 card raises.
@@ -34,6 +40,8 @@ from dhaug_torch.train.config import parse_baseline_args
 from dhaug_torch.train.data_prep import prepare_data
 from dhaug_torch.train.posenet import evaluate, evaluate_both, predict
 from dhaug_torch.train.runners import refuse_unported
+from dhaug_torch.train.video_runner import (evaluate_video, per_action_eval_loaders,
+                                           video_data_preparation)
 from dhaug_torch.utils.checkpoint import load_posenet_checkpoint, resolve_posenet_weights
 
 
@@ -63,16 +71,29 @@ def main(argv=None) -> dict:
     device = dhaug_torch.resolve_device(args.device)
     ckpt = load_posenet_checkpoint(args.evaluate)
     args.posenet_name = str(ckpt.get("posenet_name", args.posenet_name))
+    video = args.posenet_name.startswith("mulit_farme")
     refuse_unported(args)
+    if video and args.Path_3DPW:
+        raise NotImplementedError("not ported yet to dhaug_torch: --Path_3DPW with a video-mode "
+                                  f"({args.posenet_name}) checkpoint (the JAX package's "
+                                  "run_evaluate.py has it)")
 
     print("==> Loading dataset...")
-    bundle = prepare_data(args)
+    if video:
+        args.single_or_multi_train_mode = "multi"
+        bundle, _, h36m_eval, mpi3d_eval, rf = video_data_preparation(args)
+    else:
+        bundle = prepare_data(args)
     model = make_posenet(args.posenet_name, stages=args.stages, dropout=args.dropout,
                          architecture=args.architecture, skeleton=bundle.dataset.skeleton(),
                          flag="test").to(device)
     resolve_posenet_weights(ckpt, model)
 
-    h36m, dhp = evaluate_both(model, bundle, args.batch_size)
+    if video:
+        h36m = evaluate_video(model, h36m_eval, args.batch_size, device)
+        dhp = evaluate_video(model, mpi3d_eval, args.batch_size, device, flip=True)
+    else:
+        h36m, dhp = evaluate_both(model, bundle, args.batch_size)
     print(f"H36M  : P1 {h36m['p1']:.2f} mm | P2 {h36m['p2']:.2f} mm")
     print(f"3DHP  : P1 {dhp['p1']:.2f} mm | P2 {dhp['p2']:.2f} mm "
           f"| PCK {dhp['pck']:.2f} | AUC {dhp['auc']:.2f}")
@@ -85,13 +106,19 @@ def main(argv=None) -> dict:
         result["pw3d"] = pw3d
 
     if args.action_wise:
-        actions = np.asarray(bundle.actions_valid)
         print("H36M per-action P1 (mm):")
         result["actions"] = {}
-        for action in sorted(set(actions.tolist())):
-            sel = np.where(actions == action)[0]
-            m = evaluate(model, bundle.h36m_test.poses_2d[sel], bundle.h36m_test.poses_3d[sel],
-                         args.batch_size)
+        if video:
+            groups = ((action, evaluate_video(model, loader, args.batch_size, device))
+                      for action, loader in per_action_eval_loaders(args.batch_size, h36m_eval,
+                                                                    (rf - 1) // 2))
+        else:
+            actions = np.asarray(bundle.actions_valid)
+            groups = ((action, evaluate(model, bundle.h36m_test.poses_2d[actions == action],
+                                        bundle.h36m_test.poses_3d[actions == action],
+                                        args.batch_size))
+                      for action in sorted(set(actions.tolist())))
+        for action, m in groups:
             print(f"  {action:14s} {m['p1']:7.2f}")
             result["actions"][action] = m["p1"]
     return result

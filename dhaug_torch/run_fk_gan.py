@@ -1,7 +1,8 @@
-"""Single-frame FK-GAN augmented posenet training on PyTorch.
+"""FK-GAN augmented posenet training on PyTorch, single-frame and video.
 
-Port of ``run_Fk_GAN.py:24-297``'s single-frame mode, for the posenets
-``mlp``, ``gcn`` and ``videopose`` and the three augmentation methods:
+Port of ``run_Fk_GAN.py``.  Single-frame mode (``--single_or_multi_train_mode
+single``, run_Fk_GAN.py:24-297), for the posenets ``mlp``, ``gcn`` and
+``videopose`` and the three augmentation methods:
 
 * ``GAN``: each epoch re-skin the real training poses -> GAN epoch (critics
   every iteration, generator every 5th) -> posenet pass on the fakes (after
@@ -16,18 +17,23 @@ Then the LR step, the best-posenet checkpoints (``ckpt_best_dhp_p1.ckpt``,
 ``ckpt_best_h36m_p1.ckpt``) and, every ``--snapshot`` epochs, the full-state
 ``ckpt_resume_latest.ckpt`` that ``--resume`` (or ``--GAN_resume``)
 continues from and ``python -m dhaug_torch.synthesize_dataset --ckpt``
-samples from.  ``--pretrain true --evaluate <ckpt>`` trains nothing: it
-hands the checkpoint to ``python -m dhaug_torch.run_evaluate``.
+samples from.  Video mode (``multi``, run_Fk_GAN.py:191-318) trains the
+``mulit_farme_videopose`` and ``mulit_farme_poseformer`` posenets on clips
+of the receptive field's length with the video GAN and its motion critics
+(``train/video_runner.py``).  ``--pretrain true --evaluate <ckpt>`` trains
+nothing: it hands the checkpoint to ``python -m dhaug_torch.run_evaluate``.
 
     python -m dhaug_torch.run_fk_gan --posenet_name mlp --lr_p 1e-3 \\
         --keypoints gt --batch_size 1024 \\
         --data_enhancement_method GAN --single_or_multi_train_mode single
+    python -m dhaug_torch.run_fk_gan --posenet_name mulit_farme_videopose \\
+        --single_or_multi_train_mode multi --architecture 3,3 --batch_size 512
 
 Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
 card raises.  Flags that need code not ported yet are refused with an error
-(video mode and the ``mulit_farme_*`` posenets, ``--synthetic_data``,
-``--bf16_trunk``, the orbax format, picture dumps, multi-device).  Besides
-the checkpoints the run writes ``log.txt`` and ``metrics.jsonl``.
+(``--synthetic_data``, ``--bf16_trunk``, the orbax format, picture dumps,
+multi-device).  Besides the checkpoints the run writes ``log.txt`` and
+``metrics.jsonl``.
 
 A snapshot resumes bit for bit on the device type that wrote it.  Resumed on
 the other type, the weights, optimizer states and numpy stream carry over,
@@ -53,10 +59,13 @@ from dhaug_torch.models.factory import make_posenet
 from dhaug_torch.train.config import parse_aug_args
 from dhaug_torch.train.data_prep import prepare_data, train_subject_list, world_pose_pool
 from dhaug_torch.train.posenet import evaluate_both, train_epoch
-from dhaug_torch.train.runners import (make_logger, make_run_dir, refuse_unported,
-                                       write_eval_scalars)
+from dhaug_torch.train.runners import (check_posenet_mode, make_logger, make_run_dir,
+                                       refuse_unported, write_eval_scalars)
+from dhaug_torch.train.video_runner import video_mode_main
 from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
-from dhaug_torch.utils.checkpoint import load_snapshot, restore_into, save_ckpt, save_snapshot
+from dhaug_torch.utils.checkpoint import (generator_state, load_snapshot, net_state,
+                                         restore_generator, restore_net, save_ckpt,
+                                         save_snapshot)
 
 
 def _pretrain_evaluate(args) -> dict:
@@ -73,16 +82,6 @@ def _pretrain_evaluate(args) -> dict:
         "--device", args.device])
 
 
-def _net_state(net: torch.nn.Module, opt: torch.optim.Optimizer) -> dict:
-    """A net and its optimizer, as a snapshot holds them."""
-    return {"model": net.state_dict(), "opt": opt.state_dict()}
-
-
-def _restore_net(net: torch.nn.Module, opt: torch.optim.Optimizer, saved: dict) -> None:
-    restore_into(net, saved["model"])
-    opt.load_state_dict(saved["opt"])
-
-
 def main(argv=None) -> dict:
     """Run the training; returns the final scores, the per-epoch wall
     seconds, the per-epoch GAN scalars, the run directory, the trained GAN
@@ -95,12 +94,15 @@ def main(argv=None) -> dict:
     refuse_unported(args)
     if args.pretrain:
         return _pretrain_evaluate(args)
+    check_posenet_mode(args)
     device = dhaug_torch.resolve_device(args.device)
     print(f"==> device {device}; TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     method = args.data_enhancement_method
 
     train_subjects = train_subject_list(args)
+    if args.single_or_multi_train_mode == "multi":
+        return video_mode_main(args, train_subjects, device)
     print("==> Loading dataset...")
     bundle = prepare_data(args)
 
@@ -154,17 +156,12 @@ def main(argv=None) -> dict:
         saved = load_snapshot(resume_path)
         for key, (net, opt) in nets.items():
             if key == "pos_state" or key in saved:
-                _restore_net(net, opt, saved[key])
+                restore_net(net, opt, saved[key])
         summary.load_state_dict(saved["summary"])
         np_rng.bit_generator.state = saved["np_rng"]
         start_epoch = int(saved["epoch"]) + 1
         summary.epoch = start_epoch  # the snapshot is taken pre-increment
-        if saved["torch_rng"]["device"] == device.type:
-            generator.set_state(saved["torch_rng"]["state"])
-        else:
-            generator.manual_seed(args.random_seed + start_epoch)
-            print(f"==> the snapshot's torch.Generator stream is for "
-                  f"{saved['torch_rng']['device']}; reseeded for {device.type}")
+        restore_generator(generator, saved["torch_rng"], device, args.random_seed + start_epoch)
         lr_now = float(saved["lr_now"])
         dhpp1_best = saved["dhpp1_best"]
         s911p1_best = saved["s911p1_best"]
@@ -174,8 +171,8 @@ def main(argv=None) -> dict:
         state = {"epoch": now_epoch, "lr_now": lr_now,
                  "dhpp1_best": dhpp1_best, "s911p1_best": s911p1_best,
                  "summary": summary.state_dict(), "np_rng": np_rng.bit_generator.state,
-                 "torch_rng": {"device": device.type, "state": generator.get_state()}}
-        state.update({key: _net_state(net, opt) for key, (net, opt) in nets.items()})
+                 "torch_rng": generator_state(generator, device)}
+        state.update({key: net_state(net, opt) for key, (net, opt) in nets.items()})
         return state
 
     epoch_seconds = []

@@ -1,6 +1,5 @@
-"""Data preparation for the single-frame runners (port of
-``dhaug_tpu/train/data_prep.py``'s ``prepare_data``, ``train_subject_list``
-and ``world_pose_pool``).
+"""Data preparation for the runners (port of ``dhaug_tpu/train/data_prep.py``'s
+``prepare_data``, ``train_subject_list`` and ``world_pose_pool``).
 
 It reads the H36M-format npz files and the 3DHP test set from
 ``--data_root``.  It does not validate the dataset directory or fabricate a
@@ -10,7 +9,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -28,8 +27,13 @@ class DataBundle:
     mpi3d: PoseBuffer
     actions_valid: list          # one action name per H36M test frame
     # per-sequence training lists, for the traditional augmenter's pose pool
+    # and the video pipeline
     poses_train: list
     cams_train: list
+    poses_train_2d: list
+    keypoints: dict
+    subjects_test: List[str]
+    action_filter: Optional[List[str]]
 
 
 def train_subject_list(args) -> List[str]:
@@ -40,9 +44,11 @@ def train_subject_list(args) -> List[str]:
     return ["S1", "S5", "S6", "S7", "S8"]
 
 
-def prepare_data(args) -> DataBundle:
-    """Load the dataset and build the frame-level sets of the single-frame
-    pipeline (one camera record per frame)."""
+def prepare_data(args, per_frame_cam: bool = True) -> DataBundle:
+    """Load the dataset and build the frame-level sets: one camera record
+    per frame (``per_frame_cam``, the single-frame pipeline) or one per
+    sequence (video mode, whose training frames also pass the
+    --video_over_200mm filter when it is on)."""
     if args.dataset != "h36m":
         raise KeyError("Invalid dataset")
     root = args.data_root
@@ -56,13 +62,21 @@ def prepare_data(args) -> DataBundle:
     if action_filter is not None:
         action_filter = [dataset.define_actions(a)[0] for a in action_filter]
 
+    video = getattr(args, "single_or_multi_train_mode", "single") == "multi"
+    min_motion = 200.0 if getattr(args, "video_over_200mm", False) and video else None
     poses_train, poses_train_2d, cams_train, _ = fetch(
         train_subject_list(args), dataset, keypoints, action_filter, args.downsample,
-        train=True)
+        train=True, per_frame_cam=per_frame_cam, min_motion_mm=min_motion)
     poses_valid, poses_valid_2d, cams_valid, actions_valid = fetch(
         list(TEST_SUBJECTS), dataset, keypoints, action_filter, args.downsample,
-        train=False)
-    train_ds = PoseDataset.from_lists(poses_train, poses_train_2d, cams_train)
+        train=False, with_extrinsics=per_frame_cam, per_frame_cam=per_frame_cam)
+    if not per_frame_cam:
+        # one record a sequence: the frame-level sets carry no camera
+        cams_train_rows = [np.zeros((len(p), 1), np.float32) for p in poses_train]
+        cams_valid = [np.zeros((len(p), 1), np.float32) for p in poses_valid]
+    else:
+        cams_train_rows = cams_train
+    train_ds = PoseDataset.from_lists(poses_train, poses_train_2d, cams_train_rows)
 
     mpi = np.load(os.path.join(root, "data_extra", "test_set", "test_3dhp.npz"))
     mpi3d = PoseBuffer.from_lists([mpi["pose3d"]], [mpi["pose2d"]])
@@ -77,6 +91,10 @@ def prepare_data(args) -> DataBundle:
         actions_valid=[a for seq in actions_valid for a in seq],
         poses_train=poses_train,
         cams_train=cams_train,
+        poses_train_2d=poses_train_2d,
+        keypoints=keypoints,
+        subjects_test=list(TEST_SUBJECTS),
+        action_filter=action_filter,
     )
 
 

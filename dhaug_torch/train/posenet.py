@@ -1,12 +1,17 @@
-"""Posenet training and evaluation for the single-frame path, for any of
-the single-frame posenets (``mlp``, ``gcn``, ``videopose``: (B, 16, 2) in,
-(B, 16, 3) out).
+"""Posenet training and evaluation, single-frame and video.
 
-Port of ``dhaug_tpu/train/posenet.py`` (the MSE step, the flip duplicate as
-a second full optimizer step, ``train_epoch_scan``'s permutation draw, and
-the per-frame-weighted evaluation) with ``train/runners.py``'s
-``make_eval_both_scan`` folded in: H36M is evaluated unflipped and 3DHP
-flip-averaged, each over the whole set in batches.
+Port of ``dhaug_tpu/train/posenet.py`` with ``train/runners.py``'s
+``make_eval_both_scan`` folded in:
+
+* single-frame nets (``mlp``, ``gcn``, ``videopose``: (B, 16, 2) in,
+  (B, 16, 3) out): the MSE step, the flip duplicate as a second full
+  optimizer step, ``train_epoch_scan``'s permutation draw, and the
+  per-frame-weighted evaluation, H36M unflipped and 3DHP flip-averaged;
+* video nets (``mulit_farme_*``: (B, F, 16, 2) clips in, the centre frame
+  (B, 1, 16, 3) out): the MPJPE step and its playback, flip and
+  flip+playback duplicates, each a full optimizer update with its own
+  dropout draw, over fake clips or real windows gathered by index; and the
+  sequence-weighted whole-sequence evaluation.
 """
 from __future__ import annotations
 
@@ -15,8 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from dhaug_torch.ops.augment import flip_pose
-from dhaug_torch.ops.metrics import p_mpjpe_per_sample
+from dhaug_torch.ops.augment import flip_pose, time_reverse
+from dhaug_torch.ops.metrics import mpjpe, p_mpjpe_per_sample
 from dhaug_torch.train.state import clip_by_global_norm
 
 _AUC_THRESHOLDS = np.linspace(0.0, 150.0, 31)
@@ -28,10 +33,13 @@ def root_relative(pose: torch.Tensor) -> torch.Tensor:
 
 
 def train_step(model, opt, inputs_2d, targets_3d_rel, max_norm: float,
-               generator=None) -> torch.Tensor:
-    """One MSE step on root-relative targets with global-norm clipping."""
+               generator=None, criterion: str = "mse") -> torch.Tensor:
+    """One step on root-relative targets with global-norm clipping;
+    ``criterion`` 'mse' (single-frame, nn.MSELoss) or 'mpjpe' (video)."""
     model.train()
-    loss = torch.mean((model(inputs_2d, generator) - targets_3d_rel) ** 2)
+    out = model(inputs_2d, generator)
+    loss = torch.mean((out - targets_3d_rel) ** 2) if criterion == "mse" else \
+        mpjpe(out, targets_3d_rel)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     clip_by_global_norm(model.parameters(), max_norm)
@@ -64,6 +72,78 @@ def train_epoch(model, opt, poses_2d, poses_3d, np_rng: np.random.Generator,
     return float(torch.stack(losses).mean())
 
 
+def video_steps(model, opt, x, y_rel, max_norm: float, generator=None, flip: bool = True,
+                playback: bool = False) -> torch.Tensor:
+    """One batch of the video passes: the MPJPE step on clips ``x``
+    (B, F, 16, 2) and centre-frame targets ``y_rel`` (B, 1, 16, 3), then the
+    time-reversed clip with the same target (``playback``), the mirrored
+    pair (``flip``) and the mirrored reversed clip
+    (video_mode_operate.py:551-629).  Returns the base step's loss."""
+    loss = train_step(model, opt, x, y_rel, max_norm, generator, "mpjpe")
+    if playback:
+        train_step(model, opt, time_reverse(x), y_rel, max_norm, generator, "mpjpe")
+    if flip:
+        xf, yf = flip_pose(x), flip_pose(y_rel)
+        train_step(model, opt, xf, yf, max_norm, generator, "mpjpe")
+        if playback:
+            train_step(model, opt, time_reverse(xf), yf, max_norm, generator, "mpjpe")
+    return loss
+
+
+def train_video_clips(model, opt, clips_2d, center_3d, np_rng: np.random.Generator,
+                      batch_size: int, max_norm: float, generator=None, flip: bool = True,
+                      playback: bool = False) -> float:
+    """The pass on fake clips: full-clip 2D (N, F, 16, 2) in, the
+    centre-frame 3D (N, 1, 16, 3) as target, in shuffled drop-remainder
+    batches (one ``np_rng.permutation`` draw, none when no batch fits)."""
+    n = clips_2d.shape[0]
+    n_batches = n // batch_size
+    if n_batches == 0:
+        return float("nan")
+    idx = np_rng.permutation(n)[: n_batches * batch_size].reshape(n_batches, batch_size)
+    idx = torch.as_tensor(idx, device=clips_2d.device)
+    losses = [video_steps(model, opt, clips_2d[sel], root_relative(center_3d[sel]), max_norm,
+                          generator, flip, playback) for sel in idx]
+    return float(torch.stack(losses).mean())
+
+
+def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_size: int,
+                        max_norm: float, generator=None, flip: bool = True,
+                        playback: bool = False) -> float:
+    """The pass on real data: the centre-frame windows of a
+    ``data/chunked.ChunkWindows`` (one ``np_rng.permutation`` of its chunks,
+    drop-remainder batches), gathered on the device from its padded
+    concatenations."""
+    n = loader.n_chunks
+    n_batches = n // batch_size
+    if n_batches == 0:
+        return float("nan")
+    device = next(model.parameters()).device
+    order = np_rng.permutation(n)[: n_batches * batch_size]
+    big2d, big3d = device_windows(loader, device)
+    start2d = torch.as_tensor(loader.start2d[order].reshape(n_batches, batch_size),
+                              device=device)
+    idx3d = torch.as_tensor(loader.idx3d[order].reshape(n_batches, batch_size), device=device)
+    win = torch.arange(loader.window, device=device)[None]
+    losses = [video_steps(model, opt, big2d[s2[:, None] + win],
+                          root_relative(big3d[i3][:, None]), max_norm, generator, flip,
+                          playback)
+              for s2, i3 in zip(start2d, idx3d)]
+    return float(torch.stack(losses).mean())
+
+
+def device_windows(loader, device):
+    """A ChunkWindows' padded 2D and 3D concatenations on ``device``,
+    uploaded once and kept on the loader."""
+    device = torch.empty(0, device=device).device   # 'cuda' -> 'cuda:0'
+    cached = getattr(loader, "_device_windows", None)
+    if cached is None or cached[0].device != device:
+        cached = (torch.as_tensor(loader.big2d, device=device),
+                  torch.as_tensor(loader.big3d, device=device))
+        loader._device_windows = cached
+    return cached
+
+
 def _per_sample_metrics(outputs_3d, targets_3d):
     """Per-frame P1/P2 (mm) and per-joint error (mm)."""
     out = root_relative(outputs_3d).reshape(-1, 16, 3)
@@ -92,35 +172,70 @@ def predict(model, poses_2d, batch_size: int, flip: bool = False) -> torch.Tenso
                       for s in range(0, dev2d.shape[0], batch_size)])
 
 
-@torch.no_grad()
-def evaluate(model, poses_2d, poses_3d, batch_size: int,
-             flip: bool = False) -> Dict[str, float]:
-    """Whole-set evaluation with exact per-frame weighting: P1, P2 (mm),
-    PCK@150 mm and AUC (%).  ``flip`` averages each prediction with the
-    mirrored prediction of the mirrored input (the 3DHP protocol)."""
-    device = next(model.parameters()).device
-    model.eval()
-    dev2d = torch.as_tensor(poses_2d, device=device)
-    dev3d = torch.as_tensor(poses_3d, device=device)
-    n = dev2d.shape[0]
-    if n == 0:
-        return {k: float("nan") for k in ("p1", "p2", "pck", "auc")}
-    p1s, p2s, errs = [], [], []
-    for s in range(0, n, batch_size):
-        out = _forward(model, dev2d[s:s + batch_size], flip)
-        p1, p2, err = _per_sample_metrics(out, dev3d[s:s + batch_size])
-        p1s.append(p1)
-        p2s.append(p2)
-        errs.append(err)
-    p1 = torch.cat(p1s).cpu().numpy()
-    p2 = torch.cat(p2s).cpu().numpy()
-    err = torch.cat(errs).cpu().numpy()
+def _aggregate(p1, p2, err) -> Dict[str, float]:
+    """P1, P2 (mm), PCK@150 mm and AUC (%) over the frames given."""
     return {
         "p1": float(np.mean(p1)),
         "p2": float(np.mean(p2)),
         "pck": float(np.mean(err < 150.0) * 100.0),
         "auc": float(np.mean([np.mean(err < t) * 100.0 for t in _AUC_THRESHOLDS])),
     }
+
+
+_NAN_SCORES = {k: float("nan") for k in ("p1", "p2", "pck", "auc")}
+
+
+@torch.no_grad()
+def evaluate_batches(model, batches, flip: bool = False) -> Dict[str, float]:
+    """Evaluation with exact per-frame weighting over ``batches`` of
+    (inputs_2d, targets_3d[, valid]), tensors on the model's device; a
+    ``valid`` count keeps a batch's first frames only.  ``flip`` averages
+    each prediction with the mirrored prediction of the mirrored input (the
+    3DHP protocol)."""
+    model.eval()
+    p1s, p2s, errs = [], [], []
+    for batch in batches:
+        p1, p2, err = _per_sample_metrics(_forward(model, batch[0], flip), batch[1])
+        valid = batch[2] if len(batch) > 2 else None
+        p1s.append(p1[:valid])
+        p2s.append(p2[:valid])
+        errs.append(err[:valid])
+    if not p1s:
+        return dict(_NAN_SCORES)
+    return _aggregate(*(torch.cat(x).cpu().numpy() for x in (p1s, p2s, errs)))
+
+
+def evaluate(model, poses_2d, poses_3d, batch_size: int,
+             flip: bool = False) -> Dict[str, float]:
+    """Whole-set evaluation of frame arrays in batches, with exact
+    per-frame weighting: P1, P2 (mm), PCK@150 mm and AUC (%)."""
+    device = next(model.parameters()).device
+    dev2d = torch.as_tensor(poses_2d, device=device)
+    dev3d = torch.as_tensor(poses_3d, device=device)
+    return evaluate_batches(model, ((dev2d[s:s + batch_size], dev3d[s:s + batch_size])
+                                    for s in range(0, dev2d.shape[0], batch_size)), flip)
+
+
+@torch.no_grad()
+def evaluate_sequences(model, batches, flip: bool = False) -> Dict[str, float]:
+    """Whole-sequence evaluation with the reference's SEQUENCE weighting
+    (video_mode_operate.py:769-862): each batch is one sequence, (inputs_2d
+    (1, T' + 2 pad, 16, 2), targets_3d (1, T', 16, 3), valid T), and each
+    sequence's means count once, whatever its length."""
+    model.eval()
+    per_seq = []
+    for batch in batches:
+        p1, p2, err = _per_sample_metrics(_forward(model, batch[0], flip), batch[1])
+        valid = batch[2] if len(batch) > 2 else None
+        p1, p2, err = p1[:valid], p2[:valid], err[:valid]
+        frac = torch.stack([torch.mean((err < float(t)).float()) * 100.0
+                            for t in _AUC_THRESHOLDS])
+        # threshold 150 is the last entry
+        per_seq.append(torch.stack([p1.mean(), p2.mean(), frac[-1], frac.mean()]))
+    if not per_seq:
+        return dict(_NAN_SCORES)
+    means = torch.stack(per_seq).cpu().numpy().mean(axis=0)
+    return dict(zip(("p1", "p2", "pck", "auc"), (float(m) for m in means)))
 
 
 def evaluate_both(model, bundle, batch_size: int):

@@ -1,13 +1,13 @@
 """Runner plumbing shared by the entry points (port of the parts of
-``dhaug_tpu/train/runners.py`` the single-frame runners use, and the
-refusal of flags not ported yet)."""
+``dhaug_tpu/train/runners.py`` the runners use, and the refusal of flags
+not ported yet)."""
 from __future__ import annotations
 
 import datetime
 import os
 from typing import Tuple
 
-from dhaug_torch.models.factory import POSENET_NAMES, SINGLE_FRAME_NAMES
+from dhaug_torch.models.factory import SINGLE_FRAME_NAMES
 from dhaug_torch.utils.log import Logger, Summary
 
 LOG_COLUMNS = ["epoch", "lr", "error_h36m_p1", "error_h36m_p2",
@@ -16,13 +16,9 @@ LOG_COLUMNS = ["epoch", "lr", "error_h36m_p1", "error_h36m_p2",
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError naming every flag of ``args`` whose code is
-    not ported yet: video mode and its posenets, ``--synthetic_data``,
-    ``--bf16_trunk``, the orbax format, picture dumps, multi-device."""
+    not ported yet: ``--synthetic_data``, ``--bf16_trunk``, the orbax
+    format, picture dumps, multi-device."""
     unported = []
-    if args.single_or_multi_train_mode != "single":
-        unported.append(f"--single_or_multi_train_mode {args.single_or_multi_train_mode}")
-    if args.posenet_name in POSENET_NAMES and args.posenet_name not in SINGLE_FRAME_NAMES:
-        unported.append(f"--posenet_name {args.posenet_name} (video mode)")
     if args.ckpt_format != "pickle":
         unported.append(f"--ckpt_format {args.ckpt_format}")
     for flag in ("record_all_picture", "synthetic_data", "bf16_trunk"):
@@ -34,6 +30,15 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "not ported yet to dhaug_torch: " + ", ".join(unported)
             + " (the JAX package's CLIs have them)")
+
+
+def check_posenet_mode(args) -> None:
+    """The multi-frame posenets train in video mode, the others in
+    single-frame mode."""
+    video_net = args.posenet_name not in SINGLE_FRAME_NAMES
+    if video_net != (args.single_or_multi_train_mode == "multi"):
+        raise SystemExit(f"--posenet_name {args.posenet_name} needs "
+                         f"--single_or_multi_train_mode {'multi' if video_net else 'single'}")
 
 
 def make_run_dir(args) -> str:

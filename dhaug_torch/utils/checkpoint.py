@@ -114,3 +114,30 @@ def resolve_posenet_weights(ckpt: Mapping, net: torch.nn.Module) -> torch.nn.Mod
         raise SystemExit(f"unsupported checkpoint format: keys {sorted(ckpt)} (expected "
                          "'state_dict', 'model_pos', or a full-state 'pos_state')")
     return load_posenet_state_dict(net, saved)
+
+
+def net_state(net: torch.nn.Module, opt: torch.optim.Optimizer) -> dict:
+    """A net and its optimizer, as a snapshot holds them."""
+    return {"model": net.state_dict(), "opt": opt.state_dict()}
+
+
+def restore_net(net: torch.nn.Module, opt: torch.optim.Optimizer, saved: Mapping) -> None:
+    restore_into(net, saved["model"])
+    opt.load_state_dict(saved["opt"])
+
+
+def generator_state(generator: torch.Generator, device: torch.device) -> dict:
+    return {"device": device.type, "state": generator.get_state()}
+
+
+def restore_generator(generator: torch.Generator, saved: Mapping, device: torch.device,
+                      seed: int) -> None:
+    """Take the snapshot's ``torch.Generator`` stream back where it was
+    written on this device type; a CUDA state cannot seed a CPU generator
+    or the reverse, so there it is reseeded with ``seed``."""
+    if saved["device"] == device.type:
+        generator.set_state(saved["state"])
+    else:
+        generator.manual_seed(seed)
+        print(f"==> the snapshot's torch.Generator stream is for {saved['device']}; "
+              f"reseeded for {device.type}")

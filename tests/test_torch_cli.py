@@ -1,7 +1,9 @@
 """The slice as a whole: ``python -m dhaug_torch.run_fk_gan`` on the CPU at
 tiny widths on the repo's fixtures (the MLP with the GAN; gcn and videopose
-with the GAN; the normal and NO_enhance modes; ``--pretrain``), the
-package's independence from JAX, and the flags it refuses."""
+with the GAN; the normal and NO_enhance modes; ``--pretrain``; video mode
+with both multi-frame posenets, its resume and ``run_evaluate`` on its
+checkpoints), the package's independence from JAX, and the flags it
+refuses."""
 import os
 import subprocess
 import sys
@@ -93,8 +95,10 @@ def test_device_cuda_without_a_card_raises():
 @pytest.mark.parametrize("flags", [
     ["--bf16_trunk", "true"],
     ["--synthetic_data", "true"],
-    ["--single_or_multi_train_mode", "multi"],
-    ["--posenet_name", "mulit_farme_videopose"],
+    ["--single_or_multi_train_mode", "multi", "--posenet_name", "mulit_farme_videopose",
+     "--synthetic_data", "true"],
+    ["--single_or_multi_train_mode", "multi", "--posenet_name", "mulit_farme_poseformer",
+     "--record_all_picture", "true"],
     ["--ckpt_format", "orbax"],
     ["--model_parallel_devices", "2"],
     ["--record_all_picture", "true"],
@@ -202,3 +206,162 @@ def test_pretrain_evaluates_the_checkpoint_and_trains_nothing(tmp_path, one_intr
                               "--downsample", "4", "--data_root", REPO, "--device", "cpu"])
     assert got["h36m"] == want["h36m"] and got["dhp"] == want["dhp"]
     assert not (tmp_path / "runs").exists()  # no run directory: nothing trained
+
+
+# video mode: 600 training frames (--downsample 8) in batches of 64, so 9
+# GAN iterations an epoch; the generator and critics 48 wide and, through
+# narrow_video_posenets, 32-channel VideoPose and a one-block PoseFormer
+VIDEO = ["--single_or_multi_train_mode", "multi", "--architecture", "3,3", "--batch_size", "64",
+         "--downsample", "8", "--warmup", "0", "--additional_train_epoch", "0",
+         "--Gen_DenseDim", "48", "--Dis_DenseDim_3D", "48", "--Dis_DenseDim_2D", "48",
+         "--video_Dis_DenseDim_3D", "48", "--video_Dis_DenseDim_2D", "48",
+         "--data_root", REPO, "--device", "cpu"]
+
+
+def _narrow_posenet(name, *, stages=4, dropout=0.25, architecture="3,3,3", skeleton=None,
+                    flag="train"):
+    """The multi-frame posenets of models/factory.make_posenet at CPU-test
+    widths (the full ones take minutes an epoch on the CPU)."""
+    from dhaug_torch.models.factory import receptive_field
+    from dhaug_torch.models.posenets import PoseFormer, TemporalPoseNet
+    if name == "mulit_farme_videopose":
+        return TemporalPoseNet([int(w) for w in architecture.split(",")], out_joints=16,
+                               channels=32, strided=flag == "train")
+    assert name == "mulit_farme_poseformer", name
+    return PoseFormer(num_frame=receptive_field(architecture), embed_dim_ratio=8, depth=1,
+                      num_heads=2, drop_path_rate=0.1 if flag == "train" else 0.0)
+
+
+@pytest.fixture(scope="module")
+def narrow_video_posenets():
+    from dhaug_torch import run_evaluate
+    from dhaug_torch.train import video_runner
+    import torch
+    mp = pytest.MonkeyPatch()
+    mp.setattr(video_runner, "make_posenet", _narrow_posenet)
+    mp.setattr(run_evaluate, "make_posenet", _narrow_posenet)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def video_run(narrow_video_posenets, tmp_path_factory):
+    """3 epochs of mulit_farme_videopose: the motion critics from epoch 1,
+    the posenet from epoch 2; a snapshot after epoch 1."""
+    from dhaug_torch import run_fk_gan
+    return run_fk_gan.main(VIDEO + ["--posenet_name", "mulit_farme_videopose", "--epochs", "2",
+                                    "--single_dis_warmup_epoch", "1", "--snapshot", "2",
+                                    "--checkpoint", str(tmp_path_factory.mktemp("video"))])
+
+
+def _log_rows(run_dir):
+    log = open(os.path.join(run_dir, "log.txt")).read().splitlines()
+    rows = log[log.index("epoch\tlr\terror_h36m_p1\terror_h36m_p2\terror_3dhp_p1\t"
+                         "error_3dhp_p2\tPCK\tAUC") + 1:]
+    return [r.split("\t") for r in rows if not r.startswith("==>")]
+
+
+def test_video_mode_run_trains_evaluates_and_consumes_the_numpy_stream_alike(video_run):
+    """Scores, log rows, checkpoints, the scalar tags (motion ones from
+    epoch 1) and the numpy stream: each epoch one template index a training
+    sequence and the clip loader's seed, then, in the trained epoch, the
+    fake pass's permutation and the real pass's (the JAX package's order)."""
+    out = video_run
+    for scores in out["scores"].values():
+        assert all(np.isfinite(v) and v > 0 for v in scores.values())
+    assert [r[0] for r in _log_rows(out["run_dir"])] == ["0", "1", "2", "2"]
+    for name in ("ckpt_best_dhp_p1.ckpt", "ckpt_best_h36m_p1.ckpt", "ckpt_resume_latest.ckpt"):
+        assert os.path.isfile(os.path.join(out["run_dir"], name))
+    scalars = out["epoch_scalars"]
+    assert len(scalars["Fk_d3d_Wasserstein_D"]) == 3 and len(scalars["G_cost"]) == 3
+    assert len(scalars["motion_Fk_d3d_Wasserstein_D"]) == 2
+    assert len(scalars["motion_d2d_Wasserstein_D"]) == 2
+    assert all(np.isfinite(v) for vals in scalars.values() for v in vals)
+    metrics = open(os.path.join(out["run_dir"], "metrics.jsonl")).read()
+    assert "train_G_iter_PoseFk/motion_Fk_d3d_Wasserstein_D" in metrics
+    assert "posenet_H36M_test/p1score_fake" in metrics
+
+    templates = np.load(os.path.join(REPO, "data_extra", "bone_length_npy",
+                                     "hm36s15678_bl_templates.npy"))
+    mirror = np.random.default_rng(0)
+    n_frames, n_seq, batch = 600, 40, 64
+    for epoch in range(3):
+        for _ in range(n_seq):
+            mirror.integers(0, templates.shape[0])
+        mirror.integers(0, 2 ** 31)
+        if epoch == 2:
+            mirror.permutation(n_frames // batch * batch)    # the fake clips
+            mirror.permutation(n_frames)                     # the real windows
+    assert out["np_rng"].bit_generator.state == mirror.bit_generator.state
+
+
+def test_video_mode_stop_and_resume_is_bit_identical(video_run, tmp_path):
+    import torch
+
+    from dhaug_torch import run_fk_gan
+    from dhaug_torch.utils.checkpoint import load_snapshot
+    a = video_run
+    snapshot = os.path.join(a["run_dir"], "ckpt_resume_latest.ckpt")
+    saved = load_snapshot(snapshot)
+    assert saved["epoch"] == 1 and saved["trained_epochs"] == 0
+    assert {"pos_state", "gen_state", "d3d_state", "d2d_state", "md3d_state", "md2d_state",
+            "summary", "np_rng", "torch_rng"} <= set(saved)
+    b = run_fk_gan.main(VIDEO + ["--posenet_name", "mulit_farme_videopose", "--epochs", "2",
+                                 "--single_dis_warmup_epoch", "1", "--snapshot", "2",
+                                 "--checkpoint", str(tmp_path), "--resume", snapshot])
+    assert len(b["epoch_seconds"]) == 1
+    assert b["scores"] == a["scores"] and b["epoch_scalars"] == a["epoch_scalars"]
+    assert b["np_rng"].bit_generator.state == a["np_rng"].bit_generator.state
+    assert torch.equal(b["generator"].get_state(), a["generator"].get_state())
+    pairs = [("pos", a["posenet"], a["pos_opt"], b["posenet"], b["pos_opt"])]
+    for name in ("gen", "d3d", "d2d", "md3d", "md2d"):
+        pairs.append((name, getattr(a["gan"], name), getattr(a["gan"], f"{name}_opt"),
+                      getattr(b["gan"], name), getattr(b["gan"], f"{name}_opt")))
+    for name, net_a, opt_a, net_b, opt_b in pairs:
+        for k, v in net_a.state_dict().items():
+            assert torch.equal(v, net_b.state_dict()[k]), (name, k)
+        sa, sb = opt_a.state_dict()["state"], opt_b.state_dict()["state"]
+        assert all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i]), name
+
+
+def test_evaluate_reproduces_the_video_runs_best(video_run):
+    """run_evaluate on the run's best checkpoint gives the best H36M P1 the
+    run saw, and a per-action breakdown."""
+    from dhaug_torch import run_evaluate
+    ckpt = os.path.join(video_run["run_dir"], "ckpt_best_h36m_p1.ckpt")
+    got = run_evaluate.main(["--evaluate", ckpt, "--architecture", "3,3", "--batch_size", "64",
+                             "--data_root", REPO, "--device", "cpu"])
+    assert got["posenet_name"] == "mulit_farme_videopose"
+    assert abs(got["h36m"]["p1"] - video_run["best_h36m"]) <= 1e-3
+    assert got["actions"] and all(np.isfinite(v) and v > 0 for v in got["actions"].values())
+
+
+def test_video_mode_with_poseformer_and_windowed_evaluation(narrow_video_posenets, tmp_path):
+    """2 epochs of mulit_farme_poseformer, motion critics from epoch 0 and
+    the posenet in epoch 1; its evaluation runs on centre-frame windows,
+    and run_evaluate on its checkpoint gives the run's best H36M P1."""
+    from dhaug_torch import run_evaluate, run_fk_gan
+    out = run_fk_gan.main(VIDEO + ["--posenet_name", "mulit_farme_poseformer", "--epochs", "2",
+                                   "--single_dis_warmup_epoch", "0",
+                                   "--checkpoint", str(tmp_path)])
+    for scores in out["scores"].values():
+        assert all(np.isfinite(v) and v > 0 for v in scores.values())
+    assert type(out["posenet"]).__name__ == "PoseFormer"
+    assert len(out["epoch_scalars"]["motion_d2d_Wasserstein_D"]) == 2
+    assert [r[0] for r in _log_rows(out["run_dir"])] == ["0", "1", "1"]
+    ckpt = os.path.join(out["run_dir"], "ckpt_best_h36m_p1.ckpt")
+    got = run_evaluate.main(["--evaluate", ckpt, "--architecture", "3,3", "--batch_size", "64",
+                             "--action-wise", "false", "--data_root", REPO, "--device", "cpu"])
+    assert abs(got["h36m"]["p1"] - out["best_h36m"]) <= 1e-3
+
+
+@pytest.mark.parametrize("flags", [["--posenet_name", "mulit_farme_videopose"],
+                                   ["--single_or_multi_train_mode", "multi"]],
+                         ids=["video_net_single_mode", "frame_net_multi_mode"])
+def test_posenet_and_mode_must_agree(flags):
+    from dhaug_torch import run_fk_gan
+    with pytest.raises(SystemExit, match="needs --single_or_multi_train_mode"):
+        run_fk_gan.main(TINY + ["--device", "cpu"] + flags)

@@ -41,8 +41,10 @@ def _misaligned(t):
 
 # the training batch, ragged ones (1000, and 1027: a last tile of 3 poses),
 # the synthesis batch, the traditional augmenter's 10000 (a last tile of 16);
-# "1027m": inputs 4 bytes past a 16-byte boundary
-FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m"]
+# video mode's clip batches B x F: 512 x 9 (the README's --architecture 3,3
+# --batch_size 512), 512 x 27 (the default 3,3,3) and 8 x 9 (a ragged last
+# tile of 8); "1027m": inputs 4 bytes past a 16-byte boundary
+FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m", 72, 4608, 13824]
 
 
 def _fk_case(case, seed_offset, device):
@@ -118,6 +120,45 @@ def test_short_training_run_launches_both_kernels(device, tmp_path):
     assert fk_cuda.FWD_LAUNCHES - f0 == 18 + 3
     assert fk_cuda.BWD_LAUNCHES - b0 == 3
     assert all(np.isfinite(v) for v in out["scores"]["h36m"].values())
+
+
+def test_video_gan_steps_run_on_both_kernels(device):
+    """One video critic phase (motion critics and playback on) and one
+    generator update at 8 clips of 9 frames: B1 once for the critics'
+    fakes, B1 and B2 once for the generator; outputs finite and shaped."""
+    from dhaug_torch.gan.video import VideoSteps
+    from dhaug_torch.gan.wgan import GanHyper, camera_bank
+    from dhaug_torch.models import discriminators as disc
+    from dhaug_torch.train.state import adam_gan
+    B, F, W = 8, 9, 64
+    torch.manual_seed(0)
+    cfg = GeneratorConfig(dense_dim=W, video_frames=F)
+    nets = [FkGeneratorNet(cfg), disc.Fk3DDiscriminator(W), disc.Fk2DDiscriminator(W),
+            disc.MotionFk3DDiscriminator(F, W), disc.MotionFk2DDiscriminator(F, W)]
+    nets = [n.to(device) for n in nets]
+    steps = VideoSteps(*nets, *[adam_gan(n.parameters()) for n in nets], cfg, GanHyper(),
+                       *camera_bank(["S1"], device), playback=True)
+    g = torch.Generator(device=device).manual_seed(0)
+    rng = np.random.default_rng(0)
+    ang, bl, grot, root, _ = _inputs(B * F, 3, device)
+    with torch.no_grad():
+        clip3d = (fk_cuda.fk_world_pose_16(ang * 0.2, bl, grot * 0.1, root * 0.1)
+                  + torch.tensor([0.0, 0.0, 5.0], device=device)).reshape(B, F, 16, 3)
+    cam16 = torch.cat([steps.cam_intrs[0], steps.cam_quats[0], steps.cam_trans[0]]).expand(B, 16)
+    clip2d = torch.as_tensor(rng.normal(size=(B, F, 16, 2)) * 0.3, dtype=torch.float32,
+                             device=device)
+    f0, b0 = fk_cuda.FWD_LAUNCHES, fk_cuda.BWD_LAUNCHES
+    cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(clip3d, cam16, clip2d, g,
+                                                                    use_motion=True)
+    assert (fk_cuda.FWD_LAUNCHES - f0, fk_cuda.BWD_LAUNCHES - b0) == (1, 0)
+    out = steps.generator_step(bone_len, cam_idx, g, use_motion=True)
+    torch.cuda.synchronize()
+    assert (fk_cuda.FWD_LAUNCHES - f0, fk_cuda.BWD_LAUNCHES - b0) == (2, 1)
+    assert f3d.shape == (B, F, 16, 3) and f2d.shape == (B, F, 16, 2) and intr.shape == (B, F, 9)
+    assert bool(torch.isfinite(f3d).all()) and bool(torch.isfinite(f2d).all())
+    assert {"motion_3d_wasserstein", "motion_2d_wasserstein"} <= set(metrics)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert bool(torch.isfinite(out["g_cost"]))
 
 
 def _trunk(dense, device, seed=0):

@@ -1,8 +1,11 @@
 """dhaug_torch posenet training and evaluation against dhaug_tpu (CPU)."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from dhaug_torch.models import convert
@@ -124,3 +127,72 @@ def test_clip_by_global_norm_leaves_small_gradients_alone():
     p.grad = torch.tensor([3.0, 4.0, 0.0])
     t_state.clip_by_global_norm([p], 1.0)
     torch.testing.assert_close(p.grad, torch.tensor([0.6, 0.8, 0.0]))
+
+
+def _other_posenets(name):
+    """Small flax and port nets of the other four kinds, dropout and
+    drop-path 0 (the sizes of tests/test_torch_posenets.py)."""
+    if name == "gcn":
+        from dhaug_torch.data.h36m import Human36mDataset
+        from dhaug_torch.models.factory import adjacency_from_skeleton
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        skeleton = Human36mDataset(os.path.join(repo, "data", "data_3d_h36m.npz")).skeleton()
+        adj = adjacency_from_skeleton(skeleton)
+        return (j_pose.SemGCN(adj=adj, hid_dim=24, num_layers=2, dropout=0.0),
+                lambda: t_pose.SemGCN(adj, hid_dim=24, num_layers=2, p_dropout=0.0), 1)
+    if name == "videopose":
+        kw = dict(out_joints=15, pad_hip_joint=True, channels=40, strided=True)
+        return (j_pose.TemporalPoseNet(filter_widths=(1, 1, 1), dropout=0.0, **kw),
+                lambda: t_pose.TemporalPoseNet((1, 1, 1), p_dropout=0.0, **kw), 1)
+    if name == "mulit_farme_videopose":
+        kw = dict(out_joints=16, channels=40, strided=True)
+        return (j_pose.TemporalPoseNet(filter_widths=(3, 3), dropout=0.0, **kw),
+                lambda: t_pose.TemporalPoseNet((3, 3), p_dropout=0.0, **kw), 9)
+    kw = dict(num_frame=9, embed_dim_ratio=16, depth=2, num_heads=4, drop_path_rate=0.0)
+    return j_pose.PoseFormer(**kw), lambda: t_pose.PoseFormer(**kw), 9
+
+
+@pytest.mark.parametrize("name", ["gcn", "videopose", "mulit_farme_videopose",
+                                  "mulit_farme_poseformer"])
+def test_other_posenets_clipped_sgd_step_parity(name):
+    """The MSE step and its flipped duplicate, global-norm clip at 1.0
+    and SGD on both sides, for the posenets other than the MLP:
+    params and BatchNorm running stats <= 1e-6."""
+    jm, make_port, frames = _other_posenets(name)
+    rng = np.random.default_rng(7)
+    shape = (B, 16, 2) if frames == 1 else (B, frames, 16, 2)
+    x = (rng.normal(size=shape) * 0.4).astype(np.float32)
+    y = (rng.normal(size=(B, 16, 3) if frames == 1 else (B, 1, 16, 3)) * 0.3).astype(np.float32)
+    y_rel = y - y[..., :1, :]
+    v = jm.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+                jnp.asarray(x[:2]), train=False)
+    params, stats = v["params"], v.get("batch_stats", {})
+    port = make_port()
+    convert.load_posenet(name, port, _np_tree(params), _np_tree(stats))
+    lr = 0.05
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.sgd(lr))
+    step = j_train.make_posenet_train_step(jm, tx)
+    state = make_state(tx, params, stats)
+    opt = torch.optim.SGD(port.parameters(), lr=lr)
+    for xs, ys in ((x, y_rel), (None, None)):
+        if xs is None:  # the flip duplicate
+            xs_j, ys_j = j_flip_pose(jnp.asarray(x)), j_flip_pose(jnp.asarray(y_rel))
+            xs_t, ys_t = flip_pose(torch.from_numpy(x)), flip_pose(torch.from_numpy(y_rel))
+        else:
+            xs_j, ys_j, xs_t, ys_t = (jnp.asarray(xs), jnp.asarray(ys),
+                                      torch.from_numpy(xs), torch.from_numpy(ys))
+        state, loss_j = step(state, xs_j, ys_j, jax.random.PRNGKey(2))
+        loss_t = t_train.train_step(port, opt, xs_t, ys_t, max_norm=1.0)
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    ref = make_port()
+    convert.load_posenet(name, ref, _np_tree(state.params), _np_tree(state.batch_stats))
+    ref_sd = ref.state_dict()
+    for k, v in port.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_allclose(v.numpy(), ref_sd[k].numpy(), atol=1e-6, err_msg=k)
+    before = make_port()
+    convert.load_posenet(name, before, _np_tree(params), _np_tree(stats))
+    moved = max(float((v - before.state_dict()[k]).abs().max())
+                for k, v in port.state_dict().items() if not k.endswith("num_batches_tracked"))
+    assert moved > 1e-3  # the two steps moved the net
