@@ -56,16 +56,31 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               motion critics from epoch 1, the posenet in epoch 2; then
               ``run_evaluate`` on its best checkpoint (its best H36M P1
               within 0.05 mm); then 2 epochs of ``mulit_farme_poseformer``
-              (windowed evaluation) and ``run_evaluate`` on its checkpoint.
+              (windowed evaluation) and ``run_evaluate`` on its checkpoint;
+              each ``run_evaluate`` also scores the baseline phase's fake
+              SMPL-24 npz on centre-frame windows (3DPW);
+11. cli_extras -- the committed fixture's preflight report, and the main
+              command on a millimetre copy of it, which must stop with
+              ``DataValidationError`` before any kernel launch; the main
+              command with ``--synthetic_data true --bf16_trunk true`` into
+              a fresh directory for 2 epochs: the fixture the port writes
+              there must equal the committed one, B1/B2 launch exactly as
+              in the main phase, and its GAN iterations are profiled; the
+              video command with ``--bf16_trunk true`` for 2 epochs (B1 21,
+              B2 3), its iterations profiled.
 
 Each run of phases 7-10 (but the poseformer's) is then run once more under
 torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
-after.  Then it prints the ``nvidia-smi`` name/power-limit line, one ``kernels``
-JSON line, and last ``{"ok": true, "device": {...}}``.
+after.  Then it prints a ``done`` line with the script's seconds, the
+``nvidia-smi`` name/power-limit line, one ``kernels`` JSON line, and last
+``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX or of the JAX package.
+Every training phase on the committed fixture passes the data preflight
+(``data/validate.py``) first.  ``--record_all_picture`` is not driven: it
+is host-only and needs matplotlib, which the card's machine may lack; the
+CPU tests hold it.  Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -501,10 +516,10 @@ def phase_main(fk_cuda, trunk_cuda, device):
     return launches, gan, run_dir
 
 
-def phase_profile(gan, device, iters: int = 10):
+def phase_profile(gan, device, iters: int = 10, label=None):
     """Where a GAN iteration's time goes at the main path's shapes (batch
     1024, nets 1000 wide), on its trained nets, outside the counted run
-    (profile_iterations)."""
+    (profile_iterations); ``label`` names a path other than the main one."""
     import torch
     from dhaug_torch.ops.camera import project_to_2d, world_to_camera_batch
 
@@ -525,7 +540,17 @@ def phase_profile(gan, device, iters: int = 10):
                 gan.generator_step(bone_len, cam_idx, g)
         torch.cuda.synchronize()
 
-    emit({"phase": "profile", **profile_iterations(run, iters)})
+    emit({"phase": "profile", **({"path": label} if label else {}),
+          **profile_iterations(run, iters)})
+
+
+def device_kernels(prof) -> list:
+    """The device-side events of a torch.profiler run (kernels and
+    copies), without user annotations, whose device ranges only span
+    kernels that are counted already."""
+    import torch
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
 
 
 def profile_iterations(run, iters: int) -> dict:
@@ -545,9 +570,9 @@ def profile_iterations(run, iters: int) -> dict:
         run(iters)
     prof_wall_us = (time.perf_counter() - t0) * 1e6
     # device time from kernel events only: a CPU op's self device time
-    # repeats the time of the kernels it launched
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # repeats the time of the kernels it launched, and a user annotation's
+    # device range (Optimizer.step#Adam.step) spans kernels counted already
+    kernels = device_kernels(prof)
     dev = lambda e: e.self_device_time_total
     busy_us = sum(dev(e) for e in kernels)
     fk = {name: [dev(e) / e.count, e.count / iters]
@@ -563,7 +588,7 @@ def profile_iterations(run, iters: int) -> dict:
                                                 e.count / iters] for e in top]}
 
 
-def profile_video_iterations(gan, device, iters: int = 10) -> None:
+def profile_video_iterations(gan, device, iters: int = 10, label: str = "video") -> None:
     """Video GAN iterations at the README command's shapes (512 clips of 9
     frames, every net 1000 wide), with the motion critics on and off, on
     the video run's trained nets, outside the counted run."""
@@ -588,7 +613,7 @@ def profile_video_iterations(gan, device, iters: int = 10) -> None:
                 if it % 5 == 4:
                     gan.generator_step(bone_len, cam_idx, g, use_motion)
             torch.cuda.synchronize()
-        emit({"phase": "profile", "path": "video", "clips": B, "frames": F,
+        emit({"phase": "profile", "path": label, "clips": B, "frames": F,
               "use_motion": use_motion, **profile_iterations(run, iters)})
 
 
@@ -685,8 +710,7 @@ def profile_run(label: str, fn, wall_s: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
     out = {"path": label, "device_kernel_s": busy_s, "unprofiled_wall_s": wall_s,
@@ -844,23 +868,153 @@ def phase_video(fk_cuda, trunk_cuda):
         run_dir = Path(result["run_dir"])
         check_files(label, run_dir, ("ckpt_resume_latest.ckpt", "ckpt_best_dhp_p1.ckpt",
                                      "ckpt_best_h36m_p1.ckpt"))
+        # 3DPW on the baseline phase's seeded fake SMPL-24 npz: centre-frame
+        # windows of the flat sequence
+        pw3d = REPO / "_runs" / "chip_smoke" / "fake_3dpw.npz"
         ev = run_evaluate.main(["--evaluate", str(run_dir / "ckpt_best_h36m_p1.ckpt"),
                                 "--architecture", "3,3", "--batch_size", "512",
+                                "--Path_3DPW", str(pw3d),
                                 "--data_root", str(REPO), "--device", "cuda"])
         gap = abs(ev["h36m"]["p1"] - result["best_h36m"])
         emit({"phase": "video", "path": label, "evaluate_h36m_p1": ev["h36m"]["p1"],
               "evaluate_gap_mm": gap, "evaluate_dhp_p1": ev["dhp"]["p1"],
-              "actions": len(ev.get("actions", {}))})
+              "actions": len(ev.get("actions", {})), "pw3d": ev["pw3d"]})
         if not gap <= 0.05:
             raise AssertionError(f"{label}: evaluate gives H36M P1 {ev['h36m']['p1']}, the "
                                  f"run's best was {result['best_h36m']}")
+        if not all(math.isfinite(ev["pw3d"][k]) and ev["pw3d"][k] > 0 for k in ("p1", "p2")):
+            raise AssertionError(f"{label}: 3DPW scores not finite and positive: {ev['pw3d']}")
         if label == "video":
             profile_run(label, lambda: run_fk_gan.main(args), seconds)
             profile_video_iterations(result["gan"], torch.device("cuda", 0))
     return launches
 
 
+# cli_extras (a): the written fixture against the committed one, per array
+# (``data/synthetic.fixture_differences``): metres, pixels, metres and
+# normalized screen units, metres
+FIXTURE_TOL = {"data_3d_h36m.npz/positions_3d": 1e-5,
+               "data_2d_h36m_gt.npz/positions_2d": 1e-2,
+               "data_2d_h36m_cpn.npz/positions_2d": 1e-2,
+               "test_3dhp.npz/pose3d": 1e-5, "test_3dhp.npz/pose2d": 1e-5,
+               "hm36s15678_bl_templates.npy/lengths": 1e-6}
+
+
+def preflight_refuses_mm_data(fk_cuda, trunk_cuda) -> None:
+    """The committed fixture's preflight report, then the main command on a
+    copy of it whose 3D file is in millimetres: it must stop with
+    DataValidationError before any kernel launch."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from dhaug_torch import run_fk_gan
+    from dhaug_torch.data.validate import DataValidationError, validate_dataset_dir
+
+    t0 = time.perf_counter()
+    report = validate_dataset_dir(str(REPO), "gt", verbose=False)
+    preflight_s = time.perf_counter() - t0
+    (REPO / "_runs").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mm_", dir=REPO / "_runs"))
+    try:
+        for sub in ("data", "data_extra"):
+            shutil.copytree(REPO / sub, root / sub)
+        path = root / "data" / "data_3d_h36m.npz"
+        d3 = np.load(path, allow_pickle=True)["positions_3d"].item()
+        np.savez_compressed(path, positions_3d={s: {a: p * 1000.0 for a, p in acts.items()}
+                                                for s, acts in d3.items()})
+        reset_counts(fk_cuda, trunk_cuda)
+        try:
+            run_fk_gan.main(with_flags(MAIN_ARGS, data_root=root,
+                                       checkpoint=REPO / "_runs" / "chip_smoke_mm"))
+        except DataValidationError as exc:
+            refusal = str(exc.code).strip().splitlines()
+        else:
+            raise AssertionError("the millimetre copy passed preflight")
+        launches = read_counts(fk_cuda, trunk_cuda)
+    finally:
+        shutil.rmtree(root)
+    if any(launches.values()) or "MILLIMETRES" not in " ".join(refusal):
+        raise AssertionError(f"mm copy: launches {launches}, refusal {refusal}")
+    emit({"phase": "cli_extras", "preflight_report": report, "preflight_s": preflight_s,
+          "mm_refusal": refusal, "mm_launches": launches})
+
+
+def phase_cli_extras(fk_cuda, trunk_cuda, device):
+    """(d) preflight on the card's runs; (a) the README's single-frame
+    command with --synthetic_data into a fresh directory (the fixture the
+    port writes there must equal the committed one) and --bf16_trunk, 2
+    epochs: 8 GAN iterations, so B1 8 + 1 and B2 1, as the main phase's
+    first 2 epochs; its GAN iterations profiled; (b) the video command with
+    --bf16_trunk, 2 epochs with the motion critics from epoch 0 (18
+    iterations: B1 18 + 3, B2 3; the posenet trains in epoch 1), its
+    iterations profiled."""
+    import shutil
+    import tempfile
+
+    import torch
+    from dhaug_torch import run_fk_gan
+    from dhaug_torch.data.synthetic import fixture_differences
+
+    preflight_refuses_mm_data(fk_cuda, trunk_cuda)
+    launches = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_synthetic_", dir=REPO / "_runs"))
+    try:
+        args = with_flags(MAIN_ARGS, epochs=2, synthetic_data="true", bf16_trunk="true",
+                          data_root=root, checkpoint=REPO / "_runs" / "chip_smoke_bf16")
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        result = run_fk_gan.main(args)
+        seconds = time.perf_counter() - t0
+        launches["cli_extras_single"] = read_counts(fk_cuda, trunk_cuda)
+        diffs = fixture_differences(str(root), str(REPO))
+    finally:
+        shutil.rmtree(root)
+    metrics = check_scores("cli_extras_single", result["scores"])
+    emit({"phase": "cli_extras", "path": "single_synthetic_bf16", "seconds": seconds,
+          "epoch_seconds": result["epoch_seconds"],
+          "launches": launches["cli_extras_single"], **metrics,
+          "fixture_max_abs_diff": diffs, "wasserstein": result["epoch_scalars"]})
+    bad = {k: v for k, v in diffs.items() if not v <= FIXTURE_TOL[k]}
+    if bad:
+        raise AssertionError(f"the fixture written on the card differs: {bad}")
+    want = {"fwd": 8 + 1, "bwd": 1, "trunk": 0}
+    if launches["cli_extras_single"] != want:
+        raise AssertionError(f"bf16 single-frame: launches {launches['cli_extras_single']}, "
+                             f"expected {want}")
+    check_files("bf16 single-frame", Path(result["run_dir"]),
+                ("ckpt_resume_latest.ckpt", "ckpt_best_dhp_p1.ckpt", "ckpt_best_h36m_p1.ckpt"))
+    gen = result["gan"].gen
+    if gen.dtype != torch.bfloat16 or any(p.dtype != torch.float32 for p in gen.parameters()):
+        raise AssertionError("the bf16-trunk generator must compute in bf16 on fp32 weights")
+    phase_profile(result["gan"], device, label="bf16_trunk")
+
+    args = with_flags(VIDEO_ARGS, epochs=2, single_dis_warmup_epoch=0, bf16_trunk="true",
+                      data_root=REPO, checkpoint=REPO / "_runs" / "chip_smoke_video_bf16")
+    reset_counts(fk_cuda, trunk_cuda)
+    t0 = time.perf_counter()
+    result = run_fk_gan.main(args)
+    seconds = time.perf_counter() - t0
+    launches["cli_extras_video"] = read_counts(fk_cuda, trunk_cuda)
+    metrics = check_scores("cli_extras_video", result["scores"])
+    emit({"phase": "cli_extras", "path": "video_bf16", "seconds": seconds,
+          "epoch_seconds": result["epoch_seconds"], "launches": launches["cli_extras_video"],
+          **metrics, "best_h36m_p1": result["best_h36m"],
+          "wasserstein": {k: v for k, v in result["epoch_scalars"].items()
+                          if "Wasserstein" in k}})
+    want = {"fwd": 18 + 3, "bwd": 3, "trunk": 0}
+    if launches["cli_extras_video"] != want:
+        raise AssertionError(f"bf16 video: launches {launches['cli_extras_video']}, "
+                             f"expected {want}")
+    for k, v in result["epoch_scalars"].items():
+        if not all(math.isfinite(x) for x in v):
+            raise AssertionError(f"bf16 video: GAN scalar {k} not finite: {v}")
+    profile_video_iterations(result["gan"], device, label="video_bf16_trunk")
+    return launches
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not (REPO / "dhaug_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the dhaug_torch package is not beside this script",
               file=sys.stderr)
@@ -902,9 +1056,11 @@ def main() -> int:
     augment_launches = phase_augment(fk_cuda, trunk_cuda)
     baseline_launches = phase_baseline(fk_cuda, trunk_cuda, posenet_dirs["gcn"])
     video_launches = phase_video(fk_cuda, trunk_cuda)
+    extras_launches = phase_cli_extras(fk_cuda, trunk_cuda, device)
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
-             **augment_launches, "baseline": baseline_launches, **video_launches}
+             **augment_launches, "baseline": baseline_launches, **video_launches,
+             **extras_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 
@@ -943,6 +1099,7 @@ def main() -> int:
          "bound_ms": trunk_bound[0], "bound_by": trunk_bound[1],
          "library_ms": trunk_times["library_ms"]},
     ]
+    emit({"phase": "done", "seconds": time.perf_counter() - started})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -1,7 +1,9 @@
 """dhaug_torch: the PyTorch/CUDA port of DH-AUG's five posenets, its
 single-frame training (the GAN, traditional and no-augmentation modes) and
 video-mode training (the clip GAN with its motion critics), with checkpoints
-and resume, its baseline and evaluation CLIs, and its bulk pose synthesis.
+and resume, its baseline and evaluation CLIs, its bulk pose synthesis, and
+every single-device flag of the CLIs (data preflight, the synthetic
+fixture, the bf16 trunk, pictures, the JAX package's posenet checkpoints).
 
 The package mirrors ``dhaug_tpu``'s module names (``ops.fk``, ``gan.wgan``,
 ``train.posenet``, ...) so each piece has an obvious counterpart, but imports

@@ -7,7 +7,9 @@ Port of ``dhaug_tpu/gan/single_frame.py:33-295``:
 * :func:`build_gan` -- generator + 3D and 2D critics, Adam(lr, 0.5/0.9) each.
 * :func:`run_gan_epoch` -- a Python loop over the epoch's batches: critics
   every iteration, generator when the global iteration ``it % 5 == 4``; the
-  fake (cam-3D, 2D, intrinsics) buffers stay on the device for the posenet.
+  fake (cam-3D, 2D, intrinsics) buffers stay on the device for the posenet;
+  with a ``record_dir`` (``--record_all_picture``) it also dumps the
+  generator's angle heatmap every 500 iterations (:func:`dump_angle_heatmap`).
 
 Both functions consume the numpy stream exactly as the JAX package does
 (the re-skin's per-chunk template draws, the epoch's two permutations), so
@@ -15,13 +17,16 @@ a port run and a JAX run seeded alike see the same data every epoch.
 """
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 import torch
 
 from dhaug_torch.data.loaders import PoseDataset, PoseTarget
 from dhaug_torch.gan.wgan import GanHyper, SingleFrameSteps, camera_bank
 from dhaug_torch.models.discriminators import Fk2DDiscriminator, Fk3DDiscriminator
-from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
+from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig, head_to_angles
 from dhaug_torch.ops.bones import reskin_pose
 from dhaug_torch.ops.camera import project_to_2d
 from dhaug_torch.train.state import adam_gan
@@ -68,7 +73,8 @@ def build_gan(args, train_subjects, device) -> SingleFrameSteps:
     """G + D3d + D2d with their Adam optimizers (model_fk_gan_train.py:97-128)."""
     gen_cfg = GeneratorConfig(dense_dim=args.Gen_DenseDim, output_dim=args.GAN_OUTPUT_DIM,
                               use_pre_angle=args.GAN_whether_use_preAngle,
-                              use_global_rot=args.whether_use_RT)
+                              use_global_rot=args.whether_use_RT,
+                              bf16_trunk=bool(args.bf16_trunk))
     hyper = GanHyper(lambda_gp=float(args.GAN_LAMBDA), w3d=args.GAN_3d_loss_weight,
                      w2d=args.GAN_2d_loss_weight, flip=args.flip_GAN_model_input,
                      bone_len_scaler=args.bone_len_scaler)
@@ -83,11 +89,35 @@ def build_gan(args, train_subjects, device) -> SingleFrameSteps:
                             gen_cfg, hyper, quats, trans, intrs)
 
 
+@torch.no_grad()
+def dump_angle_heatmap(steps: SingleFrameSteps, seed: int, path: str, batch: int = 512):
+    """The distribution heatmap of the generator's 37 DOF/rotation angles
+    over ``batch`` noise draws (the reference dumps one every 500 generator
+    calls, Fk_generator.py:172-175), and the paper figure's knee-pair
+    density beside it.  The noise comes from a generator of its own seeded
+    with ``seed``, so the dump leaves the training stream as it was."""
+    from dhaug_torch.utils.viz import plot_angle_pair_density, plot_dof_angle_heatmap
+    device = steps.cam_quats.device
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    head = steps.gen(torch.randn((batch, steps.hyper.noise_dim), generator=g, device=device))
+    angles37, _ = head_to_angles(head.reshape(batch, -1, steps.gen_cfg.output_dim),
+                                 steps.gen_cfg)
+    flat = angles37.reshape(-1, 37).cpu().numpy()
+    plot_dof_angle_heatmap(flat, path)
+    root, ext = os.path.splitext(path)
+    plot_angle_pair_density(flat, f"{root}_knee_pair{ext or '.jpg'}",
+                            title="generated knee-DOF pair density")
+
+
 def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseTarget,
                   target_3d: PoseTarget, batch_size: int, np_rng: np.random.Generator,
-                  generator: torch.Generator, summary, writer=None):
+                  generator: torch.Generator, summary, writer=None,
+                  record_dir: Optional[str] = None):
     """One GAN pass over the epoch's batches.  Returns the fake (cam-3D, 2D,
-    intrinsics) dataset for the posenet, or None when no batch fits."""
+    intrinsics) dataset for the posenet, or None when no batch fits.  With
+    ``record_dir`` the angle heatmap is dumped there when this epoch crossed
+    a 500-iteration boundary, or at the very start."""
     device = steps.cam_quats.device
     dev_3d = torch.as_tensor(gt2d3d.poses_3d, device=device)
     dev_cam = torch.as_tensor(gt2d3d.cams, device=device)
@@ -145,6 +175,11 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
         for b in np.where(~np.isnan(scalars["g_cost"]))[0]:
             writer.add_scalar("train_G_iter_PoseFk/G_cost", float(scalars["g_cost"][b]),
                               iter_base + int(b))
+
+    crossed_500 = (iter_base // 500) != (summary.train_iter_num // 500)
+    if record_dir is not None and (crossed_500 or iter_base == 0):
+        dump_angle_heatmap(steps, iter_base, os.path.join(
+            record_dir, f"34DOF_3GlobalRot_heatmap_{iter_base + 1}.jpg"))
 
     epoch_scalars = {"3d_wasserstein": float(np.nanmean(scalars["3d_wasserstein"])),
                      "2d_wasserstein": float(np.nanmean(scalars["2d_wasserstein"]))}

@@ -206,7 +206,8 @@ def build_video_gan(args, train_subjects, video_frames: int, device) -> VideoSte
     its Adam (video_mode_my_get_poseFk_model, model_fk_gan_train.py:131-173)."""
     gen_cfg = GeneratorConfig(dense_dim=args.Gen_DenseDim, output_dim=args.GAN_OUTPUT_DIM,
                               use_pre_angle=args.GAN_whether_use_preAngle,
-                              use_global_rot=args.whether_use_RT, video_frames=video_frames)
+                              use_global_rot=args.whether_use_RT, video_frames=video_frames,
+                              bf16_trunk=bool(args.bf16_trunk))
     hyper = GanHyper(lambda_gp=float(args.GAN_LAMBDA), w3d=args.GAN_3d_loss_weight,
                      w2d=args.GAN_2d_loss_weight, w3d_motion=args.GAN_3d_motion_loss_weight,
                      w2d_motion=args.GAN_2d_motion_loss_weight, flip=args.flip_GAN_model_input,

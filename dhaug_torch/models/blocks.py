@@ -4,6 +4,12 @@ Port of ``dhaug_tpu/models/blocks.py``.  Initialisation mirrors flax's
 fan-in ``variance_scaling``: a normal truncated at two standard deviations
 with the standard deviation corrected for the truncation (``he_normal`` at
 scale 2, ``lecun_normal`` at scale 1); biases zero.
+
+``DensePrelude`` and ``DenseResBlock`` take flax's compute ``dtype``: with
+``torch.bfloat16`` the parameters stay fp32, but each layer casts its input,
+weight and bias to bf16, adds the bias to the bf16 product, and runs the
+ReLU and the residual add in bf16, as ``nn.Dense(dtype=jnp.bfloat16)``
+does (``dhaug_tpu/models/blocks.py:29-47``).
 """
 from __future__ import annotations
 
@@ -42,27 +48,38 @@ def dense(in_dim: int, out_dim: int) -> nn.Linear:
     return layer
 
 
+def apply_dense(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``layer(x)``, or with a compute ``dtype`` flax's ``Dense(dtype=...)``:
+    input, weight and bias cast to it, the bias added to the product in it."""
+    if dtype is None:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class DenseResBlock(nn.Module):
     """relu(W2 relu(W1 x) + x): the reference's ``myResNet``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=None):
         super().__init__()
         self.fc1 = dense(dim, dim)
         self.fc2 = dense(dim, dim)
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.relu(self.fc2(F.relu(self.fc1(x))) + x)
+        y = F.relu(apply_dense(self.fc1, x, self.dtype))
+        return F.relu(apply_dense(self.fc2, y, self.dtype) + x)
 
 
 class DensePrelude(nn.Module):
     """Dense + ReLU input adapter."""
 
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int, dtype=None):
         super().__init__()
         self.fc = dense(in_dim, dim)
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.relu(self.fc(x))
+        return F.relu(apply_dense(self.fc, x, self.dtype))
 
 
 class ResTower(nn.Module):

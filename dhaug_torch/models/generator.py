@@ -5,7 +5,11 @@ the head emits 35 values a frame, [0:31] fill the 31 non-structurally-zero
 slots of the 37-d [34 DOF + 3 global rotation] vector in order, value 31 is
 unused, and [32:35] are the root (tanh x 10).  The video generator
 (``video_frames`` F > 1) emits all F frames of a clip from one noise vector,
-a head of F x 35.
+a head of F x 35.  ``bf16_trunk`` (``--bf16_trunk``) runs the trunk's
+matmuls, bias adds, ReLUs and residual adds in bf16 with fp32 parameters,
+as flax's ``dtype=bfloat16`` does, and casts the head back to fp32; FK and
+geometry stay fp32.  It is plain bf16 ``F.linear`` (cuBLAS on the card),
+not the trunk kernel B3, whose biases and residuals stay fp32.
 
 :func:`synthesize_poses` routes the FK through ``ops/fk_cuda`` (the CUDA
 kernels for CUDA tensors, the plain FK for CPU tensors).
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dhaug_torch.models.blocks import DensePrelude, DenseResBlock, dense
+from dhaug_torch.models.blocks import DensePrelude, DenseResBlock, apply_dense, dense
 from dhaug_torch.ops import fk_cuda
 
 # Structurally-zero DOF slots (Fk_generator.py:136).
@@ -57,22 +61,25 @@ class GeneratorConfig(NamedTuple):
     use_pre_angle: bool = True     # --GAN_whether_use_preAngle
     use_global_rot: bool = True    # --whether_use_RT
     video_frames: int = 1          # F > 1: the video generator
+    bf16_trunk: bool = False       # --bf16_trunk: the trunk computes in bf16
 
 
 class FkGeneratorNet(nn.Module):
-    """The dense trunk: noise (B, 128) -> head (B, F x 35)."""
+    """The dense trunk: noise (B, 128) -> head (B, F x 35), fp32."""
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
-        self.prelude = DensePrelude(cfg.noise_dim, cfg.dense_dim)
-        self.blocks = nn.ModuleList(DenseResBlock(cfg.dense_dim) for _ in range(3))
+        self.dtype = torch.bfloat16 if cfg.bf16_trunk else None
+        self.prelude = DensePrelude(cfg.noise_dim, cfg.dense_dim, self.dtype)
+        self.blocks = nn.ModuleList(DenseResBlock(cfg.dense_dim, self.dtype)
+                                    for _ in range(3))
         self.head = dense(cfg.dense_dim, cfg.video_frames * cfg.output_dim)
 
     def forward(self, noise):
         x = self.prelude(noise)
         for block in self.blocks:
             x = block(x)
-        return self.head(x)
+        return apply_dense(self.head, x, self.dtype).float()
 
 
 def head_to_angles(head: torch.Tensor, cfg: GeneratorConfig):

@@ -15,8 +15,10 @@ every epoch.
 It writes ``ckpt_best.ckpt`` (best H36M P1), ``ckpt_best_dhp_p1.ckpt`` and
 every ``--snapshot`` epochs ``ckpt_epoch_%04d.ckpt``, each with the posenet
 under 'state_dict'; ``log.txt`` and ``metrics.jsonl``; and last the line
-``Best H36M P1: ... mm | best 3DHP P1: ... mm``.  It draws no metric plot
-(the JAX CLI's plot is optional and needs matplotlib).
+``Best H36M P1: ... mm | best 3DHP P1: ... mm``, after drawing ``log.png``
+from ``log.txt`` (``utils/viz.plot_metric_curves``); where the plot fails,
+for example without matplotlib, it prints why and the run goes on, as the
+JAX CLI does.
 
     python -m dhaug_torch.run_baseline --posenet_name videopose --keypoints gt \\
         --epochs 50 --batch_size 1024
@@ -26,6 +28,7 @@ card raises.
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -41,6 +44,7 @@ from dhaug_torch.train.runners import make_logger, make_run_dir, refuse_unported
 from dhaug_torch.train.state import adam_posenet, set_learning_rate, step_exp_lr
 from dhaug_torch.utils.checkpoint import (load_posenet_checkpoint, resolve_posenet_weights,
                                           save_snapshot)
+from dhaug_torch.utils.viz import plot_metric_curves
 
 
 def training_pairs(args, bundle):
@@ -94,7 +98,8 @@ def main(argv=None) -> dict:
                          skeleton=bundle.dataset.skeleton()).to(device)
     print(f"==> Total parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     if args.pretrain:
-        resolve_posenet_weights(load_posenet_checkpoint(args.evaluate), model)
+        resolve_posenet_weights(load_posenet_checkpoint(args.evaluate), model,
+                                args.posenet_name)
         print(f"==> Pretrained posenet loaded from {args.evaluate} (warm-start fine-tuning)")
 
     opt = adam_posenet(model.parameters(), args.lr)
@@ -148,6 +153,11 @@ def main(argv=None) -> dict:
 
     logger.close()
     summary.close()
+    # final metric-curve plot (the reference dumps log.eps, run_baseline.py:70-71)
+    try:
+        plot_metric_curves(os.path.join(run_dir, "log.txt"), os.path.join(run_dir, "log.png"))
+    except Exception as exc:  # plotting must never fail a training run
+        print(f"(metric plot skipped: {exc})")
     print(f"Best H36M P1: {best_h36m:.2f} mm | best 3DHP P1: {best_dhp:.2f} mm")
     return {"best_h36m": best_h36m, "best_dhp": best_dhp, "run_dir": run_dir,
             "epoch_seconds": epoch_seconds, "posenet": model}

@@ -2,9 +2,11 @@
 
 Port of ``run_evaluate.py``.  It reads the
 checkpoints of both port CLIs ('state_dict' from ``run_baseline``,
-'model_pos' from ``run_fk_gan``, and a full-state snapshot's 'pos_state')
-and reference ``ckpt_*.pth.tar`` files under either key; the posenet name
-comes from the checkpoint where it holds one, else from ``--posenet_name``.
+'model_pos' from ``run_fk_gan``, and a full-state snapshot's 'pos_state'),
+the JAX package's posenet checkpoints under either key (flax trees of numpy
+arrays, read without running pickled code) and reference
+``ckpt_*.pth.tar`` files under either key; the posenet name comes from the
+checkpoint where it holds one, else from ``--posenet_name``.
 H36M is scored unflipped and 3DHP flip-averaged; ``--action-wise`` (on by
 default) adds the H36M P1 of each action, and ``--Path_3DPW <npz>``
 (``pose3d`` (N, 24|16, 3) metres, ``pose2d`` (N, 16, 2) normalized) a
@@ -15,7 +17,9 @@ mean-centring.  Checkpoints of the multi-frame ``mulit_farme_*`` posenets
 them: the evaluation twin on whole edge-padded sequences, each sequence
 weighted once (VideoPose), or on centre-frame windows weighted by frame
 (PoseFormer), and ``--action-wise`` regroups those sequences by action;
-their 3DPW scoring is not ported yet and is refused.
+their 3DPW score is the flip-averaged centre-frame prediction of each
+frame's receptive-field window over the edge-padded flat npz (it carries no
+sequence boundaries, so a window may straddle one).
 
     python -m dhaug_torch.run_evaluate --evaluate checkpoint/.../ckpt_best.ckpt \\
         --posenet_name videopose
@@ -28,6 +32,7 @@ card raises.
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,8 +50,12 @@ from dhaug_torch.train.video_runner import (evaluate_video, per_action_eval_load
 from dhaug_torch.utils.checkpoint import load_posenet_checkpoint, resolve_posenet_weights
 
 
-def score_3dpw(model, path: str, batch_size: int) -> dict:
-    """P1/P2 (mm) of flip-averaged predictions on a 3DPW-style npz."""
+def score_3dpw(model, path: str, batch_size: int, rf: Optional[int] = None) -> dict:
+    """P1/P2 (mm) of flip-averaged predictions on a 3DPW-style npz.  A
+    multi-frame posenet (receptive field ``rf``; None for the others) sees
+    each frame's window of the flat 2D edge-padded by ``rf // 2`` a side,
+    in batches of ``batch_size`` windows (the index list edge-padded to
+    whole batches, as the JAX CLI does), and its centre frame is scored."""
     data = np.load(path)
     gt3d, in2d = np.asarray(data["pose3d"], np.float32), np.asarray(data["pose2d"], np.float32)
     if gt3d.shape[1] == 24:
@@ -54,7 +63,15 @@ def score_3dpw(model, path: str, batch_size: int) -> dict:
         mapped = sorted(PW3D_TO_16POINTS_TABLE.values())
     else:
         mapped = list(range(16))
-    pred = predict(model, in2d, batch_size, flip=True)[:, mapped]
+    n = in2d.shape[0]
+    if rf is not None:
+        sel = np.minimum(np.arange(-(-n // batch_size) * batch_size), n - 1)
+        padded = np.pad(in2d, ((rf // 2, rf // 2), (0, 0), (0, 0)), "edge")
+        in2d = padded[sel[:, None] + np.arange(rf)[None]]     # (whole batches, rf, 16, 2)
+    pred = predict(model, in2d, batch_size, flip=True)
+    if rf is not None:
+        pred = pred[:n, 0]                                    # (., 1, 16, 3): centre frame
+    pred = pred[:, mapped]
     gt = torch.as_tensor(gt3d[:, mapped], device=pred.device)
     pred = pred - pred.mean(dim=1, keepdim=True)
     gt = gt - gt.mean(dim=1, keepdim=True)
@@ -73,21 +90,17 @@ def main(argv=None) -> dict:
     args.posenet_name = str(ckpt.get("posenet_name", args.posenet_name))
     video = args.posenet_name.startswith("mulit_farme")
     refuse_unported(args)
-    if video and args.Path_3DPW:
-        raise NotImplementedError("not ported yet to dhaug_torch: --Path_3DPW with a video-mode "
-                                  f"({args.posenet_name}) checkpoint (the JAX package's "
-                                  "run_evaluate.py has it)")
 
     print("==> Loading dataset...")
     if video:
         args.single_or_multi_train_mode = "multi"
         bundle, _, h36m_eval, mpi3d_eval, rf = video_data_preparation(args)
     else:
-        bundle = prepare_data(args)
+        bundle, rf = prepare_data(args), None
     model = make_posenet(args.posenet_name, stages=args.stages, dropout=args.dropout,
                          architecture=args.architecture, skeleton=bundle.dataset.skeleton(),
                          flag="test").to(device)
-    resolve_posenet_weights(ckpt, model)
+    resolve_posenet_weights(ckpt, model, args.posenet_name)
 
     if video:
         h36m = evaluate_video(model, h36m_eval, args.batch_size, device)
@@ -100,7 +113,7 @@ def main(argv=None) -> dict:
     result = {"h36m": h36m, "dhp": dhp, "posenet_name": args.posenet_name}
 
     if args.Path_3DPW:
-        pw3d = score_3dpw(model, args.Path_3DPW, args.batch_size)
+        pw3d = score_3dpw(model, args.Path_3DPW, args.batch_size, rf)
         print(f"3DPW  : P1 {pw3d['p1']:.2f} mm | P2 {pw3d['p2']:.2f} mm "
               f"({pw3d['joints']}-joint protocol, {pw3d['frames']} frames)")
         result["pw3d"] = pw3d

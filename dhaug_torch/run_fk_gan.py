@@ -30,8 +30,14 @@ nothing: it hands the checkpoint to ``python -m dhaug_torch.run_evaluate``.
         --single_or_multi_train_mode multi --architecture 3,3 --batch_size 512
 
 Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
-card raises.  Flags that need code not ported yet are refused with an error
-(``--synthetic_data``, ``--bf16_trunk``, the orbax format, picture dumps,
+card raises.  Before any device work the dataset directory is validated
+(``data/validate.py``), or with ``--synthetic_data true`` the missing files
+of the synthetic fixture are written there (``data/synthetic.py``).
+``--bf16_trunk true`` computes the generator's trunk in bf16 (fp32
+parameters).  ``--record_all_picture true`` (needs matplotlib) dumps fake
+and real poses every epoch and the angle heatmap every 500 iterations under
+``<run dir>/tmp/``, and the GAN's epoch-mean curves last.  Flags that need
+code not ported yet are refused with an error (the orbax format,
 multi-device).  Besides the checkpoints the run writes ``log.txt`` and
 ``metrics.jsonl``.
 
@@ -66,6 +72,31 @@ from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
 from dhaug_torch.utils.checkpoint import (generator_state, load_snapshot, net_state,
                                          restore_generator, restore_net, save_ckpt,
                                          save_snapshot)
+from dhaug_torch.utils.viz import (plot_fake_real_pairs_3d, plot_paper_pose2d,
+                                   plot_paper_pose3d_row, plot_pose_grid_2d, plot_pose_grid_3d,
+                                   plot_scalar_curves)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def dump_epoch_pictures(tmp_dir: str, epoch: int, fake_ds: PoseDataset,
+                        real_ds: PoseDataset) -> None:
+    """``--record_all_picture``'s per-epoch dumps (run_Fk_GAN.py:160-196):
+    grids of fake and real 3D and 2D poses, the 'for paper' figures and the
+    fake-vs-real pairs, from one host copy of the first 16 of each."""
+    f3d, f2d = _host(fake_ds.poses_3d[:16]), _host(fake_ds.poses_2d[:16])
+    r3d, r2d = _host(real_ds.poses_3d[:16]), _host(real_ds.poses_2d[:16])
+    path = lambda name: os.path.join(tmp_dir, f"{name}_ep{epoch}.jpg")
+    plot_pose_grid_3d(f3d, path("fake3d"), title=f"fake 3D, epoch {epoch}")
+    plot_paper_pose3d_row(f3d[:3], path("paper_fake3d"))
+    plot_paper_pose2d(f2d[0], path("paper_fake2d"))
+    plot_fake_real_pairs_3d(f3d[:4], r3d[:4], path("pairs3d"),
+                            title=f"fake vs real, epoch {epoch}")
+    plot_pose_grid_2d(f2d, path("fake2d"), title=f"fake 2D, epoch {epoch}")
+    plot_pose_grid_3d(r3d, path("real3d"), title=f"real (re-skinned) 3D, epoch {epoch}")
+    plot_pose_grid_2d(r2d, path("real2d"), title=f"real (re-skinned) 2D, epoch {epoch}")
 
 
 def _pretrain_evaluate(args) -> dict:
@@ -79,7 +110,7 @@ def _pretrain_evaluate(args) -> dict:
         "--dropout", str(args.dropout), "--batch_size", str(args.batch_size),
         "--downsample", str(args.downsample), "--data_root", args.data_root,
         "--keypoints", args.keypoints, "--s1only", str(bool(args.s1only)).lower(),
-        "--device", args.device])
+        "--synthetic_data", str(bool(args.synthetic_data)).lower(), "--device", args.device])
 
 
 def main(argv=None) -> dict:
@@ -175,18 +206,23 @@ def main(argv=None) -> dict:
         state.update({key: net_state(net, opt) for key, (net, opt) in nets.items()})
         return state
 
+    tmp_dir = os.path.join(run_dir, "tmp")
     epoch_seconds = []
     for now_epoch in range(start_epoch, args.epochs + args.additional_train_epoch):
         t0 = time.perf_counter()
         fake_ds = None
+        gt2d3d = bundle.train_gt2d3d
         if method == "GAN":
             gt2d3d = reskin_dataset(bundle.train_gt2d3d, templates, np_rng, device)
             fake_ds = run_gan_epoch(gan, gt2d3d, PoseTarget(gt2d3d.poses_2d),
                                     PoseTarget(gt2d3d.poses_3d), args.batch_size, np_rng,
-                                    generator, summary, summary.writer)
+                                    generator, summary, summary.writer,
+                                    record_dir=tmp_dir if args.record_all_picture else None)
         elif method == "normal":
             pose16, *_ = generate_traditional_poses(generator, pose_pool, trad_cfg)
             fake_ds = PoseDataset(*project_through_cameras(pose16, *cams), None)
+        if args.record_all_picture and fake_ds is not None:
+            dump_epoch_pictures(tmp_dir, summary.epoch, fake_ds, gt2d3d)
 
         train_now = (summary.epoch > args.warmup and method == "GAN") or method == "normal"
         if train_now and fake_ds is not None:
@@ -236,6 +272,10 @@ def main(argv=None) -> dict:
               f"| 3DHP P1 {dhp['p1']:.2f} | {epoch_seconds[-1]:.2f} s")
         summary.epoch += 1
 
+    if args.record_all_picture and summary.epoch_scalar_history:
+        plot_scalar_curves(summary.epoch_scalar_history,
+                           os.path.join(run_dir, "wasserstein_curves.png"),
+                           title="GAN critic curves (epoch means)")
     logger.close()
     summary.close()
     return {"scores": scores, "epoch_seconds": epoch_seconds,

@@ -2,8 +2,10 @@
 ``prepare_data``, ``train_subject_list`` and ``world_pose_pool``).
 
 It reads the H36M-format npz files and the 3DHP test set from
-``--data_root``.  It does not validate the dataset directory or fabricate a
-synthetic one; both stay with the JAX package.
+``--data_root``.  Before that, and before any device work, it either writes
+the missing files of the synthetic fixture (``--synthetic_data true``) or
+validates the directory (``data/validate.py``), which raises
+``DataValidationError`` on a wrong-unit or wrong-shape file.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import List, Optional
 import numpy as np
 
 from dhaug_torch.data.h36m import TEST_SUBJECTS, Human36mDataset
+from dhaug_torch.data.synthetic import ensure_synthetic_dataset
+from dhaug_torch.data.validate import validate_dataset_dir
 from dhaug_torch.data.loaders import (PoseBuffer, PoseDataset, create_2d_data, fetch,
                                       np_camera_to_world, read_3d_data)
 
@@ -49,9 +53,18 @@ def prepare_data(args, per_frame_cam: bool = True) -> DataBundle:
     per frame (``per_frame_cam``, the single-frame pipeline) or one per
     sequence (video mode, whose training frames also pass the
     --video_over_200mm filter when it is on)."""
+    root = args.data_root
+    if args.synthetic_data:
+        # fills in only the missing files, so a fixture directory gains
+        # just what it lacks (e.g. the detected-2D file for --keypoints cpn)
+        ensure_synthetic_dataset(root, seed=args.random_seed, device=args.device)
+    else:
+        # the bone-template asset feeds only the GAN re-skin: the baseline
+        # and evaluate parsers have no --data_enhancement_method
+        validate_dataset_dir(root, args.keypoints,
+                             require_templates=hasattr(args, "data_enhancement_method"))
     if args.dataset != "h36m":
         raise KeyError("Invalid dataset")
-    root = args.data_root
     dataset = read_3d_data(Human36mDataset(
         os.path.join(root, "data", f"data_3d_{args.dataset}.npz")))
     keypoints = create_2d_data(

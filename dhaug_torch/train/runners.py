@@ -1,6 +1,6 @@
 """Runner plumbing shared by the entry points (port of the parts of
-``dhaug_tpu/train/runners.py`` the runners use, and the refusal of flags
-not ported yet)."""
+``dhaug_tpu/train/runners.py`` the runners use, and the refusal of the
+flags not ported yet: the orbax format and multi-device)."""
 from __future__ import annotations
 
 import datetime
@@ -16,14 +16,10 @@ LOG_COLUMNS = ["epoch", "lr", "error_h36m_p1", "error_h36m_p2",
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError naming every flag of ``args`` whose code is
-    not ported yet: ``--synthetic_data``, ``--bf16_trunk``, the orbax
-    format, picture dumps, multi-device."""
+    not ported yet: the orbax format and multi-device."""
     unported = []
     if args.ckpt_format != "pickle":
         unported.append(f"--ckpt_format {args.ckpt_format}")
-    for flag in ("record_all_picture", "synthetic_data", "bf16_trunk"):
-        if getattr(args, flag, False):
-            unported.append(f"--{flag} true")
     if args.data_parallel_devices > 1 or args.model_parallel_devices > 1:
         unported.append("--data_parallel_devices/--model_parallel_devices above 1")
     if unported:

@@ -22,7 +22,9 @@ whole edge-padded sequences, sequence-weighted; PoseFormer on centre-frame
 windows, frame-weighted) with the training weights.  The numpy stream is
 consumed as the JAX package consumes it: each epoch one template index per
 training sequence, the clip loader's seed, the fake pass's permutation and
-the real pass's.
+the real pass's.  With ``--record_all_picture`` each GAN epoch dumps a fake
+clip (3D and 2D) and a real re-skinned clip under ``<run dir>/tmp/``, and
+the run ends with the GAN's epoch-mean curves.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
 from dhaug_torch.utils.checkpoint import (generator_state, load_snapshot, net_state,
                                           restore_generator, restore_net, save_ckpt,
                                           save_snapshot)
+from dhaug_torch.utils.viz import plot_scalar_curves, plot_video_strip
 
 def video_data_preparation(args):
     """The training windows, the H36M and 3DHP evaluation loaders and the
@@ -240,6 +243,17 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
             use_motion = summary.epoch >= args.single_dis_warmup_epoch
             fakes = run_video_gan_epoch(gan, gan_loader, args.batch_size, generator, summary,
                                         use_motion, summary.writer)
+        if args.record_all_picture and fakes is not None:
+            # the reference dumps real clips beside the fake ones
+            # (video_GAN_fun.py:590-600)
+            f3d, f2d, _ = fakes
+            plot_video_strip(f3d[0].cpu().numpy(), f2d[0].cpu().numpy(),
+                             os.path.join(run_dir, "tmp", f"fake_video_ep{summary.epoch}.jpg"),
+                             title=f"fake clip, epoch {summary.epoch}")
+            start = int(gan_loader.start3d[0])
+            plot_video_strip(gan_loader.big3d[start:start + rf], None,
+                             os.path.join(run_dir, "tmp", f"real_video_ep{summary.epoch}.jpg"),
+                             title=f"real (re-skinned) clip, epoch {summary.epoch}")
 
         train_now = (summary.epoch > warm and method == "GAN") or method == "normal"
         if train_now:
@@ -292,6 +306,10 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
               f"| 3DHP P1 {dhp['p1']:.2f} | {epoch_seconds[-1]:.2f} s")
         summary.epoch += 1
 
+    if args.record_all_picture and summary.epoch_scalar_history:
+        plot_scalar_curves(summary.epoch_scalar_history,
+                           os.path.join(run_dir, "wasserstein_curves.png"),
+                           title="GAN critic curves (epoch means)")
     logger.close()
     summary.close()
     return {"scores": scores, "epoch_seconds": epoch_seconds,

@@ -8,17 +8,26 @@ written on the card loads on the CPU and the reverse, and loading runs no
 pickled code.  numpy's ``bit_generator.state`` (a dict of strings and
 Python ints, 128-bit ones included) loads under ``weights_only``.
 
-Not ported: the ``orbax`` format (refused with ``NotImplementedError``),
-reading the JAX package's snapshots, and ``fetch_tree``, which served the
-TPU runtime; ``.cpu()`` takes its place.
+The JAX package's posenet checkpoints (its ``save_ckpt`` pickles plain
+dicts of numpy arrays: 'state_dict' from ``run_baseline.py``, 'model_pos'
+from ``run_Fk_GAN.py``) are told apart by their first bytes (``torch.save``
+writes a zip, a raw pickle starts with ``0x80``) and read by an unpickler
+that resolves only the numpy globals an array pickle names; their flax
+trees go through ``models/convert.load_posenet``.  The JAX package's
+full-state snapshots (flax ``NetState`` objects inside) and ``orbax``
+directories are refused with a message that says why.  Not ported:
+``fetch_tree``, which served the TPU runtime; ``.cpu()`` takes its place.
 """
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 
+from dhaug_torch.models.convert import load_posenet
 from dhaug_torch.utils.transplant import (is_torch_checkpoint, load_posenet_state_dict,
                                           load_torch_checkpoint)
 
@@ -48,6 +57,59 @@ def load_ckpt(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def is_raw_pickle(path: str) -> bool:
+    """A raw pickle (the JAX package's ``save_ckpt``) starts with the
+    PROTO opcode 0x80; a ``torch.save`` file is a zip, which starts with ``PK``."""
+    with open(path, "rb") as f:
+        return f.read(1) == b"\x80"
+
+
+def _numpy_globals() -> dict:
+    """The globals a pickled numpy array or scalar names, under both module
+    spellings (numpy 2 writes ``numpy._core``, numpy 1 ``numpy.core``),
+    resolved in the numpy that runs here."""
+    try:
+        from numpy._core import multiarray, numeric
+    except ImportError:  # numpy < 2
+        from numpy.core import multiarray, numeric
+    found = {}
+    for core in ("numpy.core", "numpy._core"):
+        found[(f"{core}.multiarray", "_reconstruct")] = multiarray._reconstruct
+        found[(f"{core}.multiarray", "scalar")] = multiarray.scalar
+        found[(f"{core}.numeric", "_frombuffer")] = numeric._frombuffer
+    found[("numpy", "ndarray")] = np.ndarray
+    found[("numpy", "dtype")] = np.dtype
+    return found
+
+
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    """Resolves numpy's array globals and nothing else, so a pickle that
+    names any other class or function fails before anything of it runs."""
+
+    allowed = _numpy_globals()
+
+    def find_class(self, module, name):
+        if (module, name) in self.allowed:
+            return self.allowed[(module, name)]
+        why = ""
+        if module.split(".")[0] in ("dhaug_tpu", "flax", "optax", "jax", "jaxlib"):
+            why = (" It is a JAX package full-state snapshot (its nets are flax NetState "
+                   "objects): the port reads only the JAX package's posenet checkpoints "
+                   "('state_dict' or 'model_pos' of numpy arrays); evaluate the run's "
+                   "ckpt_best_*.ckpt instead.")
+        raise pickle.UnpicklingError(
+            f"refused to unpickle the global {module}.{name}: a JAX package checkpoint may "
+            f"hold numpy arrays only, so no pickled code runs.{why}")
+
+
+def load_jax_ckpt(path: str) -> dict:
+    """A checkpoint of the JAX package's ``save_ckpt`` (a raw pickle of
+    dicts, numbers, strings and numpy arrays), read with numpy globals
+    only."""
+    with open(path, "rb") as f:
+        return _NumpyOnlyUnpickler(f).load()
+
+
 def save_snapshot(state: dict, ckpt_dir: str, suffix: str, fmt: str = "pickle") -> str:
     """Full-state snapshot save (``--ckpt_format``): 'pickle' writes one
     ``ckpt_<suffix>.ckpt`` file; 'orbax' is not ported."""
@@ -61,10 +123,15 @@ def save_snapshot(state: dict, ckpt_dir: str, suffix: str, fmt: str = "pickle") 
 
 def load_snapshot(path: str) -> dict:
     """Load a snapshot written by :func:`save_snapshot`.  A directory is an
-    orbax snapshot, which the port cannot read yet."""
+    orbax snapshot and a raw pickle the JAX package's: neither resumes."""
     if os.path.isdir(path):
         raise NotImplementedError(f"{path} is an orbax snapshot directory; reading orbax "
                                   "snapshots is not ported yet to dhaug_torch")
+    if is_raw_pickle(path):
+        raise NotImplementedError(
+            f"{path} is a JAX package checkpoint (a raw pickle): the port resumes only its "
+            "own snapshots (the JAX package's nets, optimizer states and PRNG key do not map "
+            "onto them); run_evaluate and --pretrain read its posenet checkpoints")
     return load_ckpt(path)
 
 
@@ -93,18 +160,28 @@ def restore_into(module: torch.nn.Module, saved: Mapping[str, torch.Tensor]) -> 
 
 
 def load_posenet_checkpoint(path: str) -> dict:
-    """A posenet checkpoint as a dict: a port ``.ckpt`` as written, a
+    """A posenet checkpoint as a dict: a port ``.ckpt`` as written, a JAX
+    package checkpoint as it pickled it (flax trees of numpy arrays), a
     reference ``.pth.tar`` as ``{'state_dict': <its posenet state_dict>}``."""
     if is_torch_checkpoint(path):
         return {"state_dict": load_torch_checkpoint(path)}
+    if not os.path.isdir(path) and is_raw_pickle(path):
+        return load_jax_ckpt(path)
     return load_snapshot(path)
 
 
-def resolve_posenet_weights(ckpt: Mapping, net: torch.nn.Module) -> torch.nn.Module:
-    """Load a checkpoint's posenet weights into ``net``, strictly by name,
-    from any of the layouts: 'state_dict' (``run_baseline``, a reference
-    ``.pth.tar``), 'model_pos' (``run_fk_gan``'s best-posenet saves) and
-    the full-state 'pos_state' of a ``--snapshot``/``--resume`` snapshot.
+def _is_flax_tree(saved: Mapping) -> bool:
+    """flax params nest a dict per module; a state_dict maps names to tensors."""
+    return any(isinstance(v, Mapping) for v in saved.values())
+
+
+def resolve_posenet_weights(ckpt: Mapping, net: torch.nn.Module, name: str) -> torch.nn.Module:
+    """Load a checkpoint's weights into ``net``, the ``name`` posenet, from
+    any of the layouts: 'state_dict' (``run_baseline``, a reference
+    ``.pth.tar``), 'model_pos' (``run_fk_gan``'s best-posenet saves), each
+    as a port state_dict (strictly by name) or as the JAX package's flax
+    trees with their 'batch_stats' (``convert.load_posenet``), and the
+    full-state 'pos_state' of a ``--snapshot``/``--resume`` snapshot.
     Shared by ``run_evaluate`` and ``run_baseline``'s ``--pretrain`` warm
     start."""
     saved = ckpt.get("state_dict", ckpt.get("model_pos"))
@@ -113,6 +190,8 @@ def resolve_posenet_weights(ckpt: Mapping, net: torch.nn.Module) -> torch.nn.Mod
     if saved is None:
         raise SystemExit(f"unsupported checkpoint format: keys {sorted(ckpt)} (expected "
                          "'state_dict', 'model_pos', or a full-state 'pos_state')")
+    if _is_flax_tree(saved):
+        return load_posenet(name, net, saved, ckpt.get("batch_stats"))
     return load_posenet_state_dict(net, saved)
 
 

@@ -152,13 +152,29 @@ def test_evaluate_names_the_keys_of_a_mismatched_checkpoint(tmp_path):
 
 
 def test_evaluate_refuses_video_checkpoints(tmp_path):
-    """A video checkpoint is scored on H36M and 3DHP, but its 3DPW scoring
-    is not ported: asked for, it is refused before any data is read."""
-    path = save_ckpt({"model_pos": {}, "posenet_name": "mulit_farme_videopose"},
-                     str(tmp_path), suffix="best")
-    with pytest.raises(NotImplementedError, match="--Path_3DPW with a video-mode "
-                                                  r"\(mulit_farme_videopose\)"):
-        run_evaluate.main(SMALL + ["--evaluate", path, "--Path_3DPW", "pw3d.npz"])
+    """A video checkpoint is scored on H36M, 3DHP and 3DPW (tests/
+    test_torch_cli.py, tests/test_torch_jax_checkpoints.py), but two kinds
+    stay refused before any data is read: the JAX package's full-state
+    snapshot of a video run (its posenet sits in a flax NetState, whose
+    class the port's unpickler will not resolve) and an orbax directory."""
+    import pickle
+
+    import optax
+
+    from dhaug_tpu.train.state import make_state
+    from dhaug_tpu.utils.checkpoint import save_ckpt as jax_save_ckpt
+    params = {"Dense_0": {"kernel": np.zeros((2, 3), np.float32),
+                          "bias": np.zeros(3, np.float32)}}
+    path = jax_save_ckpt({"epoch": 1, "pos_state": make_state(optax.adam(1e-3), params),
+                          "posenet_name": "mulit_farme_videopose"},
+                         str(tmp_path), suffix="resume_latest")
+    refusal = r"dhaug_tpu\.train\.state\.NetState.*JAX package full-state snapshot"
+    with pytest.raises(pickle.UnpicklingError, match=refusal):
+        run_evaluate.main(SMALL + ["--evaluate", path, "--architecture", "3,3"])
+    orbax_dir = tmp_path / "ckpt_resume_latest"
+    orbax_dir.mkdir()
+    with pytest.raises(NotImplementedError, match="orbax snapshot directory"):
+        run_evaluate.main(SMALL + ["--evaluate", str(orbax_dir), "--architecture", "3,3"])
 
 
 @pytest.mark.parametrize("mode", ["mix", "replace"])

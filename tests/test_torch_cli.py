@@ -79,7 +79,7 @@ def test_no_jax_in_the_port():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
     assert bad == "[]"
-    assert int(n_modules) >= 43
+    assert int(n_modules) >= 48
 
 
 def test_device_cuda_without_a_card_raises():
@@ -93,18 +93,20 @@ def test_device_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bf16_trunk", "true"],
-    ["--synthetic_data", "true"],
+    ["--ckpt_format", "orbax", "--bf16_trunk", "true"],
+    ["--model_parallel_devices", "2", "--synthetic_data", "true"],
     ["--single_or_multi_train_mode", "multi", "--posenet_name", "mulit_farme_videopose",
-     "--synthetic_data", "true"],
+     "--data_parallel_devices", "2"],
     ["--single_or_multi_train_mode", "multi", "--posenet_name", "mulit_farme_poseformer",
-     "--record_all_picture", "true"],
+     "--ckpt_format", "orbax", "--record_all_picture", "true"],
     ["--ckpt_format", "orbax"],
     ["--model_parallel_devices", "2"],
-    ["--record_all_picture", "true"],
+    ["--record_all_picture", "true", "--data_parallel_devices", "4"],
     ["--data_parallel_devices", "2"],
 ])
 def test_unported_flags_are_refused(flags):
+    """Only the orbax format and multi-device stay unported; the ported
+    flags beside them do not lift the refusal."""
     from dhaug_torch import run_fk_gan
     with pytest.raises(NotImplementedError, match="not ported yet"):
         run_fk_gan.main(TINY + ["--device", "cpu"] + flags)

@@ -217,3 +217,59 @@ def test_short_synthesis_run_launches_both_kernels(device, tmp_path):
     data = np.load(tmp_path / "s.npz")
     assert data["pose3d"].shape == (1000, 16, 3) and np.isfinite(data["pose3d"]).all()
     assert result["n_poses"] == 1000
+
+
+def test_bf16_trunk_gan_step_runs_on_both_kernels(device):
+    """A single-frame critic phase and generator update with the bf16 trunk
+    (--bf16_trunk) at batch 256, width 64: the trunk computes in bf16 on
+    fp32 weights, B1 runs once for the critics' fakes and B1 + B2 once for
+    the generator update, every output finite; the generator's gradient
+    reaches its fp32 weights."""
+    from dhaug_torch.gan.wgan import GanHyper, SingleFrameSteps, camera_bank
+    from dhaug_torch.models import discriminators as disc
+    from dhaug_torch.train.state import adam_gan
+    B, W = 256, 64
+    torch.manual_seed(0)
+    cfg = GeneratorConfig(dense_dim=W, bf16_trunk=True)
+    nets = [n.to(device) for n in (FkGeneratorNet(cfg), disc.Fk3DDiscriminator(W),
+                                   disc.Fk2DDiscriminator(W))]
+    steps = SingleFrameSteps(*nets, *[adam_gan(n.parameters()) for n in nets], cfg,
+                             GanHyper(), *camera_bank(["S1"], device))
+    head = steps.gen(torch.randn(B, 128, device=device))
+    assert head.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in steps.gen.parameters())
+    g = torch.Generator(device=device).manual_seed(0)
+    ang, bl, grot, root, _ = _inputs(B, 5, device)
+    with torch.no_grad():
+        real = (fk_cuda.fk_world_pose_16(ang * 0.2, bl, grot * 0.1, root * 0.1)
+                + torch.tensor([0.0, 0.0, 5.0], device=device))
+    cam16 = torch.cat([steps.cam_intrs[0], steps.cam_quats[0], steps.cam_trans[0]]).expand(B, 16)
+    target_2d = torch.as_tensor(np.random.default_rng(0).normal(size=(B, 16, 2)) * 0.3,
+                                dtype=torch.float32, device=device)
+    before = [p.detach().clone() for p in steps.gen.parameters()]
+    f0, b0 = fk_cuda.FWD_LAUNCHES, fk_cuda.BWD_LAUNCHES
+    cam_idx, bone_len, f3d, f2d, _, metrics = steps.critics_step(real, cam16, target_2d, g)
+    assert (fk_cuda.FWD_LAUNCHES - f0, fk_cuda.BWD_LAUNCHES - b0) == (1, 0)
+    out = steps.generator_step(bone_len, cam_idx, g)
+    torch.cuda.synchronize()
+    assert (fk_cuda.FWD_LAUNCHES - f0, fk_cuda.BWD_LAUNCHES - b0) == (2, 1)
+    assert bool(torch.isfinite(f3d).all()) and bool(torch.isfinite(f2d).all())
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert bool(torch.isfinite(out["g_cost"]))
+    assert all(not torch.equal(a, p) for a, p in zip(before, steps.gen.parameters()))
+
+
+def test_synthetic_fixture_written_on_the_card_equals_the_committed_one(device, tmp_path):
+    """ensure_synthetic_dataset with the FK on the card writes the files the
+    repo holds: 3D and 3DHP to 1e-5 m (3DHP 2D to 1e-5), pixels to 1e-2,
+    templates to 1e-6 m."""
+    import os
+    from dhaug_torch.data.synthetic import ensure_synthetic_dataset, fixture_differences
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ensure_synthetic_dataset(str(tmp_path), device="cuda")
+    diffs = fixture_differences(str(tmp_path), repo)
+    tol = {"data_3d_h36m.npz/positions_3d": 1e-5, "data_2d_h36m_gt.npz/positions_2d": 1e-2,
+           "data_2d_h36m_cpn.npz/positions_2d": 1e-2, "test_3dhp.npz/pose3d": 1e-5,
+           "test_3dhp.npz/pose2d": 1e-5, "hm36s15678_bl_templates.npy/lengths": 1e-6}
+    assert set(diffs) == set(tol)
+    assert all(diffs[k] <= tol[k] for k in tol), diffs
