@@ -67,13 +67,40 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               there must equal the committed one, B1/B2 launch exactly as
               in the main phase, and its GAN iterations are profiled; the
               video command with ``--bf16_trunk true`` for 2 epochs (B1 21,
-              B2 3), its iterations profiled.
+              B2 3), its iterations profiled;
+12. data_parallel -- ``--data_parallel_devices`` and multi-process
+              synthesis on the one card: (a) the main command with
+              ``--data_parallel_devices 2`` must stop before any launch;
+              (b) the main command in an NCCL group of one rank must train
+              the main phase's weights bit for bit; a full-width SGD
+              witness: one critic phase and generator update of the
+              single-frame (1024) and video (512 x 9) GANs and one MLP
+              step (batch norm, dropout) on two gloo ranks sharing cuda:0
+              against one rank running each GAN net's forward in two
+              halves (the row counts a rank gives cuBLAS), each net's
+              summed SGD steps within 2e-3 of its largest element, beside
+              a control that must fail that bound (one rank's rows
+              alone), the gaps to the plain one rank printed; (c) the
+              main command
+              and (d) the video command on two gloo ranks sharing cuda:0
+              (``parallel/mesh.launch_main``; 512 and 2304 poses a rank in
+              B1/B2) against the main and video phases' runs: the first
+              iteration's Wasserstein estimates within 1e-3 of the critic's
+              scores, each rank's B1/B2 launches equal to the one-rank
+              run's; the later iterations, the trained weights' gaps and
+              the H36M P1 printed; (e)
+              ``synthesize_dataset`` as two processes joined by
+              ``--coordinator`` (B3 and B1 at 4096 rows a process): the npz
+              must equal the two shards' streams run in this process.
+              (c)-(e) sample the card's busy share with nvidia-smi; two
+              ranks on one card compete for it, so their times are no
+              scaling number.
 
 Each run of phases 7-10 (but the poseformer's) is then run once more under
 torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
-after.  Then it prints a ``done`` line with the script's seconds, the
+after; a rank or process of phase 12 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
 ``nvidia-smi`` name/power-limit line, one ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -117,9 +144,11 @@ BWD_RTOL = 1e-5
 # synthesis batch 8192, the traditional augmenter's 10000 (312 full tiles of
 # 32 poses and one of 16), and video mode's clip batches B x F: 512 x 9
 # (the README's --architecture 3,3 --batch_size 512), 512 x 27 (the default
-# 3,3,3) and 8 x 9 (two full tiles and one of 8)
+# 3,3,3) and 8 x 9 (two full tiles and one of 8); and a rank's rows of two
+# data-parallel ranks: 512 (training), 2304 (video clips), 4096 (synthesis)
 FK_CHECKED = ((1024, False), (1000, False), (1, False), (1027, False), (8192, False),
-              (1027, True), (10000, False), (4608, False), (13824, False), (72, False))
+              (1027, True), (10000, False), (4608, False), (13824, False), (72, False),
+              (512, False), (2304, False), (4096, False))
 FK_TIMED_B = (1024, 4608, 8192)
 
 # the synthesis path: the generator width, the CLI's default batch, 8 batches
@@ -405,7 +434,8 @@ def profile_trunk_layers(trunk_cuda, ops, noise, calls: int = 5) -> list:
 
 def phase_trunk_kernel(trunk_cuda, device):
     """B3 against the plain bf16 trunk at D = 1000, B = 8192, 1000, 1 and
-    at D = 64, B = 64 and D = 256, B = 333, to the rule of
+    4096 (a rank's rows of a 2-process synthesis) and at D = 64, B = 64 and
+    D = 256, B = 333, to the rule of
     trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR (max and mean absolute error
     over the std of the head); then timings and the per-layer profile at
     B = 8192."""
@@ -413,7 +443,8 @@ def phase_trunk_kernel(trunk_cuda, device):
     import torch
 
     max_abs = 0.0
-    for D, B in ((SYNTH_D, SYNTH_B), (SYNTH_D, 1000), (SYNTH_D, 1), (64, 64), (256, 333)):
+    for D, B in ((SYNTH_D, SYNTH_B), (SYNTH_D, 1000), (SYNTH_D, 1), (64, 64), (256, 333),
+                 (SYNTH_D, SYNTH_B // 2)):
         case_ops = trunk_operands(trunk_cuda, D, device)
         noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
                                 dtype=torch.float32, device=device)
@@ -513,7 +544,9 @@ def phase_main(fk_cuda, trunk_cuda, device):
         raise AssertionError(f"generated poses: shape {tuple(pose.shape)}, bone err {bl_err}")
     emit({"phase": "main", "bone_length_canary_max_err_m": bl_err,
           "checkpoints": sorted(p.name for p in run_dir.glob("ckpt_*"))})
-    return launches, gan, run_dir
+    reference = {"nets": net_weights(result), "run_dir": run_dir, "launches": launches,
+                 "scores": scores, "epoch_seconds": result["epoch_seconds"], "seconds": seconds}
+    return launches, gan, run_dir, reference
 
 
 def phase_profile(gan, device, iters: int = 10, label=None):
@@ -682,7 +715,7 @@ def phase_synth(fk_cuda, trunk_cuda, run_dir: Path, device):
           "trunk_ms_at_8192": trunk_ms, "fk_fwd_ms_at_8192": fk_ms,
           "trunk_share_of_body": trunk_ms / body_ms, "fk_share_of_body": fk_ms / body_ms,
           "bone_len_below_m": below, "bone_len_above_m": above, "thorax_err_m": thorax})
-    return launches
+    return launches, {"cli_poses_per_s": result["poses_per_s"]}
 
 
 def check_scores(label: str, scores: dict) -> dict:
@@ -707,7 +740,9 @@ def profile_run(label: str, fn, wall_s: float) -> dict:
     by device time, with their launch counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the kernel events are all this reads, and the
+    # host events of a whole run take longer to gather than the run itself
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
@@ -841,7 +876,7 @@ def phase_video(fk_cuda, trunk_cuda):
     the windowed evaluation."""
     import torch
     from dhaug_torch import run_evaluate, run_fk_gan
-    launches = {}
+    launches, reference = {}, None
     for label, args, want in (
             ("video", VIDEO_ARGS, {"fwd": 27 + 5, "bwd": 5}),
             ("video_poseformer", with_flags(VIDEO_ARGS, posenet_name="mulit_farme_poseformer",
@@ -855,6 +890,10 @@ def phase_video(fk_cuda, trunk_cuda):
         launches[label] = read_counts(fk_cuda, trunk_cuda)
         metrics = check_scores(label, result["scores"])
         scalars = result["epoch_scalars"]
+        if label == "video":
+            reference = {"nets": net_weights(result), "run_dir": Path(result["run_dir"]),
+                         "launches": launches[label], "scores": result["scores"],
+                         "epoch_seconds": result["epoch_seconds"], "seconds": seconds}
         emit({"phase": "video", "path": label, "seconds": seconds,
               "epoch_seconds": result["epoch_seconds"], "launches": launches[label],
               "best_h36m_p1": result["best_h36m"], **metrics,
@@ -887,7 +926,7 @@ def phase_video(fk_cuda, trunk_cuda):
         if label == "video":
             profile_run(label, lambda: run_fk_gan.main(args), seconds)
             profile_video_iterations(result["gan"], torch.device("cuda", 0))
-    return launches
+    return launches, reference
 
 
 # cli_extras (a): the written fixture against the committed one, per array
@@ -1013,6 +1052,578 @@ def phase_cli_extras(fk_cuda, trunk_cuda, device):
     return launches
 
 
+# data_parallel: two gloo ranks sharing the one card against one rank.
+#
+# The update arithmetic is held first, at full width, by a witness that can
+# fail: one critic phase and one generator update of the single-frame GAN
+# (batch 1024) and of the video GAN (512 clips of 9 frames, motion critics
+# on), and one step of the main command's MLP (1024 wide, 4 stages, batch
+# norm and dropout), each with SGD at the CPU tests' rates and every draw
+# injected at the global batch, on two gloo ranks sharing cuda:0 against
+# one rank.  SGD keeps each update proportional to the gradient, so a
+# missing or wrong all-reduce, or batch norm over a rank's rows, changes
+# it by a share of its size; Adam, whose steps are ~lr whatever the
+# gradient, cannot show that.
+#
+# The reference is one rank whose GAN nets run each forward in two halves
+# of its batch (HalvesForward): the row counts a rank gives cuBLAS.  On the
+# card cuBLAS picks other kernels for half the rows, and that alone moves
+# the video 3D critic's penalty by 2.4e-2 of itself and so its SGD step
+# by 9e-2 of its largest element (measured on an H100 80GB HBM3 at 700 W:
+# the plain one-rank run read the same gaps against this reference as two
+# ranks did against the plain run); each row's forward does not depend on
+# the other rows, so against the halves reference the ranks differ only
+# in how the per-row terms are summed.  Each net's summed SGD steps must
+# agree to DP_UPDATE_TOL of the net's largest step element, the batch-norm
+# statistics to 1e-6 and the critic phases' scalars to DP_METRIC_TOL (the
+# tests' 1e-4) of the larger of the value, the critic's mean scores and 1.
+# Measured on that card: at most 2.4e-4 (the generator), 8.6e-6 and
+# 2.4e-7; the bound sits between 2.4e-4 and the control's least, 1.9e-2.
+# The CPU tests' absolute weight bounds (critics 1e-6, generator 1e-5) are
+# printed, not held: at full width the motion-3D critic's step reaches
+# 1.1e-2 (penalty gradients ~1e5 at lr 1e-7) and its weights came 1.1e-6
+# apart, 1.0e-4 of that step.  The gaps to the plain one-rank run are
+# printed.  A control shows the bound can fail: one rank's rows alone in
+# this process (what a rank computes with no all-reduce and no global
+# batch norm) must be further than DP_UPDATE_TOL on every net.
+#
+# Then the main and video commands themselves run on two ranks against the
+# main and video phases' one-rank runs: each rank must launch B1/B2 as the
+# one-rank run does, and the first iteration's estimates keep
+# DP_WASSERSTEIN_TOL (the tests' 1e-4 is too tight on the card: the video
+# command's 3D estimate came 1.6e-4 apart, from the kernels cuBLAS picks
+# for half the rows, which the witness's halves reference shows moving
+# the same critic's penalty by 2.4e-2).  From the first Adam update on,
+# the runs drift apart (Adam moves a weight ~lr a step even where its
+# gradient is rounding noise), so the later iterations, the trained
+# weights and H36M P1 are printed, not held.
+DP_DEVICES = ["cuda:0", "cuda:0"]
+DP_WASSERSTEIN_TOL = 1e-3
+DP_UPDATE_TOL = 2e-3
+DP_METRIC_TOL = 1e-4
+DP_SUBJECTS = ["S1", "S5", "S6", "S7", "S8"]
+DP_WIDTH = 1000
+DP_SGD_LR = {"gen": 1e-2, "d3d": 1e-6, "d2d": 1e-6,                     # tests/test_torch_gan.py
+             "v_gen": 1e-3, "v_d3d": 1e-7, "v_d2d": 1e-6, "v_md3d": 1e-7,  # tests/test_torch_video.py
+             "v_md2d": 1e-6, "posenet": 1e-3}
+
+
+def dp_witness_inputs(seed: int = 0) -> dict:
+    """The witness's global inputs and draws, numpy, from ``seed``: real
+    poses from the plain FK at random angles 5 m before the camera, camera
+    records of DP_SUBJECTS' bank, 2D targets, noise, scalers, camera
+    indices and the GP alphas."""
+    import numpy as np
+    import torch
+    from dhaug_torch.gan.wgan import camera_bank
+    from dhaug_torch.ops import fk as fk_plain
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+
+    def poses(n):
+        return fk_plain.fk_world_pose_16(*(torch.as_tensor(a, dtype=torch.float32) for a in (
+            rng.uniform(-30, 30, (n, 33)),
+            np.asarray(fk_plain.CANONICAL_BONE_LEN) * rng.uniform(0.9, 1.1, (n, 15)),
+            rng.uniform(-30, 30, (n, 3)), np.broadcast_to([0.0, 0.0, 5.0], (n, 3))))).numpy()
+
+    quats, trans, intrs = (np.asarray(x) for x in camera_bank(DP_SUBJECTS))
+    bank = np.concatenate([intrs, quats, trans], 1)      # cam16 rows: intrinsics|quat|t
+
+    def draws(B, F):
+        # GP rows: the single-frame critics' and the per-frame motion-2D
+        # critic's B x F, the motion-3D critic's B (tests/test_torch_video.py)
+        rows = [B] * 4 if F == 1 else [B * F, B, B, B * F, B, B] + [B * F] * 6
+        return dict(noise=f32(rng.normal(size=(B, 128))),
+                    scaler8=f32(rng.integers(-200, 200, (B, 8)) / 1000.0),
+                    cam_idx=int(rng.integers(0, len(bank))),
+                    alphas=[f32(rng.uniform(size=(n, 1))) for n in rows])
+
+    B, Bv, F = 1024, 512, 9
+    return {"single": dict(real=poses(B), cam16=f32(bank[rng.integers(0, len(bank), B)]),
+                           tgt2d=f32(rng.normal(size=(B, 16, 2)) * 0.3),
+                           critics=draws(B, 1), gen=draws(B, 1)),
+            "video": dict(real=poses(Bv * F).reshape(Bv, F, 16, 3),
+                          cam16=f32(bank[rng.integers(0, len(bank), Bv)]),
+                          tgt2d=f32(rng.normal(size=(Bv, F, 16, 2)) * 0.3),
+                          critics=draws(Bv, F), gen=draws(Bv, F)),
+            "posenet": dict(x=f32(rng.normal(size=(B, 16, 2)) * 0.3),
+                            y=f32(rng.normal(size=(B, 16, 3)) * 0.3))}
+
+
+class HalvesForward:
+    """A net whose forward runs the batch in two halves and concatenates
+    them; everything else is the net's."""
+
+    def __init__(self, net):
+        self.net = net
+
+    def __call__(self, x):
+        import torch
+        return torch.cat([self.net(h) for h in x.chunk(2)])
+
+    def __getattr__(self, name):
+        return getattr(self.net, name)
+
+
+def dp_witness(inputs: dict, control: str = "", width: int = DP_WIDTH,
+               device: str = "cuda:0") -> dict:
+    """The witness's steps (see above) in this process or on each rank of
+    ``mesh.launch``, from nets seeded alike (and broadcast from rank 0):
+    returns each net's update (after - before) and the sum of its SGD
+    steps (lr x gradient, free of the rounding of storing the weights,
+    which alone is an ulp of the weight), the critic phases'
+    scalars (the ranks' mean), the MLP's batch-norm statistics and loss,
+    and this process's B1/B2/B3 launches.  ``control`` 'rows' takes the
+    first half of every global input (one rank's rows, alone); 'halves'
+    runs every GAN net's forward in two halves of the batch.  A rank runs
+    on its own device; this process on ``device``."""
+    import torch
+    from dhaug_torch.gan import video, wgan
+    from dhaug_torch.models import discriminators, generator
+    from dhaug_torch.models.factory import make_posenet
+    from dhaug_torch.parallel import mesh
+    from dhaug_torch.train import posenet as train
+
+    dp = mesh.current()
+    device = dp.device if dp.device is not None else torch.device(device)
+    steps_of = {}          # lr x the gradient of every SGD step, summed
+
+    def keep_step(opt, args, kwargs):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    steps_of[id(p)] = steps_of.get(id(p), 0.0) + group["lr"] * p.grad.detach()
+
+    on = lambda a: torch.as_tensor(a[: len(a) // 2] if control == "rows" else a, device=device)
+    cams = wgan.camera_bank(DP_SUBJECTS, device)
+    nets, metrics = {}, {}
+
+    def build(prefix, seed, make):
+        torch.manual_seed(seed)
+        made = [n.to(device) for n in make()]
+        dp.broadcast_modules(*made)
+        names = ["gen", "d3d", "d2d", "md3d", "md2d"][:len(made)]
+        nets.update({prefix + k: n for k, n in zip(names, made)})
+        opts = [torch.optim.SGD(n.parameters(), lr=DP_SGD_LR[prefix + k])
+                for k, n in zip(names, made)]
+        for opt in opts:
+            opt.register_step_pre_hook(keep_step)
+        return made, opts
+
+    cfg = generator.GeneratorConfig(dense_dim=width)
+    made, opts = build("", 0, lambda: [generator.FkGeneratorNet(cfg),
+                                       discriminators.Fk3DDiscriminator(width),
+                                       discriminators.Fk2DDiscriminator(width)])
+    vcfg = generator.GeneratorConfig(dense_dim=width, video_frames=9)
+    vmade, vopts = build("v_", 1, lambda: [generator.FkGeneratorNet(vcfg),
+                                           discriminators.Fk3DDiscriminator(width),
+                                           discriminators.Fk2DDiscriminator(width),
+                                           discriminators.MotionFk3DDiscriminator(9, width),
+                                           discriminators.MotionFk2DDiscriminator(9, width)])
+    torch.manual_seed(2)
+    mlp = make_posenet("mlp", stages=4, dropout=0.25).to(device)
+    dp.broadcast_modules(mlp)
+    nets["posenet"] = mlp
+    before = {name: {k: p.detach().clone() for k, p in n.named_parameters()}
+              for name, n in nets.items()}
+
+    steps = wgan.SingleFrameSteps(*made, *opts, cfg, wgan.GanHyper(), *cams)
+    vsteps = video.VideoSteps(*vmade, *vopts, vcfg, wgan.GanHyper(), *cams, playback=True)
+    for label, st, extra in (("single", steps, ()), ("video", vsteps, (True,))):
+        if control == "halves":
+            for name in ("gen", "d3d", "d2d", "md3d", "md2d"):
+                if hasattr(st, name):
+                    setattr(st, name, HalvesForward(getattr(st, name)))
+        x, d, g = inputs[label], inputs[label]["critics"], inputs[label]["gen"]
+        cam_idx, bone_len, *_, m = st.critics_step(
+            dp.rows(on(x["real"])), dp.rows(on(x["cam16"])), dp.rows(on(x["tgt2d"])), None,
+            *extra, noise=on(d["noise"]), scaler8=on(d["scaler8"]),
+            cam_idx=torch.tensor(d["cam_idx"]), alphas=[on(a) for a in d["alphas"]])
+        gm = st.generator_step(bone_len, cam_idx, None, *extra, noise=on(g["noise"]),
+                               scaler8=on(g["scaler8"]))
+        metrics[label] = {k: float(dp.mean(v)) for k, v in {**m, **gm}.items()}
+    x = inputs["posenet"]
+    opt = torch.optim.SGD(mlp.parameters(), lr=DP_SGD_LR["posenet"])
+    opt.register_step_pre_hook(keep_step)
+    loss = train.train_step(mlp, opt, dp.rows(on(x["x"])), dp.rows(on(x["y"])), 1.0,
+                            torch.Generator(device).manual_seed(3))
+    return {"updates": {name: {k: (p.detach() - before[name][k]).cpu()
+                               for k, p in n.named_parameters()} for name, n in nets.items()},
+            "steps": {name: {k: torch.as_tensor(steps_of.get(id(p), 0.0)).cpu()
+                             for k, p in n.named_parameters()} for name, n in nets.items()},
+            "metrics": metrics, "loss": float(dp.mean(loss)),
+            "bn": {k: v.detach().cpu() for k, v in mlp.named_buffers() if "running" in k},
+            "launches": mesh.kernel_launches()}
+
+
+def update_gaps(got: dict, want: dict) -> dict:
+    """By net: the largest gap of an updated weight (``max_abs``), and the
+    largest gap of a summed SGD step over the net's largest step element
+    (``of_largest``)."""
+    out = {}
+    for name, ref in want["steps"].items():
+        weights = max(float((got["updates"][name][k] - v).abs().max())
+                      for k, v in want["updates"][name].items())
+        gap = max(float((got["steps"][name][k] - v).abs().max()) for k, v in ref.items())
+        size = max(float(v.abs().max()) for v in ref.values())
+        out[name] = {"max_abs": weights, "of_largest": gap / size if size else float("inf")}
+    return out
+
+
+def metric_gaps(got: dict, want: dict) -> dict:
+    """Each critic phase scalar's gap over the larger of the value, the
+    critic's mean scores and 1 (as dp_run scales the estimates)."""
+    out = {}
+    for label, ref in want["metrics"].items():
+        for k, v in ref.items():
+            prefix = k.rsplit("wasserstein", 1)[0] if "wasserstein" in k else None
+            scores = [abs(ref[prefix + p]) for p in ("d_real", "d_fake")
+                      if prefix is not None and prefix + p in ref]
+            out[f"{label}.{k}"] = abs(got["metrics"][label][k] - v) / max([1.0, abs(v)] + scores)
+    return out
+
+
+def dp_sgd_witness(fk_cuda, trunk_cuda) -> dict:
+    """The full-width SGD witness (see above): two gloo ranks on cuda:0
+    against one rank running its nets' forwards in halves, with the plain
+    one-rank run and the one-rank-rows control beside them."""
+    import torch
+    from dhaug_torch.parallel import mesh
+
+    inputs = dp_witness_inputs()
+    reset_counts(fk_cuda, trunk_cuda)
+    halves = dp_witness(inputs, "halves")
+    one_launches = read_counts(fk_cuda, trunk_cuda)
+    one = dp_witness(inputs)
+    rows = dp_witness(inputs, "rows")
+    t0 = time.perf_counter()
+    ranks = mesh.launch("chip_smoke:dp_witness", (inputs,), DP_DEVICES, "gloo")
+    wall = time.perf_counter() - t0
+    two = update_gaps(ranks[0], halves)
+    control = update_gaps(rows, halves)
+    bn_gap = max(float((ranks[0]["bn"][k] - v).abs().max()) for k, v in halves["bn"].items())
+    m_two = metric_gaps(ranks[0], halves)
+    same = all(all(torch.equal(ranks[0]["updates"][n][k], ranks[1]["updates"][n][k])
+                   for k in ranks[0]["updates"][n]) for n in ranks[0]["updates"])
+    emit({"phase": "data_parallel", "path": "sgd_witness", "ranks": len(ranks),
+          "launcher_wall_s": wall, "update_gaps": two, "control_one_rank_rows": control,
+          "update_tol": DP_UPDATE_TOL, "bn_stat_gap": bn_gap,
+          "loss_gap": abs(ranks[0]["loss"] - halves["loss"]),
+          "metric_gaps": m_two, "metric_tol": DP_METRIC_TOL,
+          "plain_one_rank": {"update_gaps_two_ranks": update_gaps(ranks[0], one),
+                             "update_gaps_halves": update_gaps(halves, one),
+                             "metric_gaps_two_ranks": metric_gaps(ranks[0], one),
+                             "metric_gaps_halves": metric_gaps(halves, one)},
+          "ranks_identical": same,
+          "rank_launches": [r["launches"] for r in ranks], "one_rank_launches": one_launches})
+    bad = {f"{n}.of_largest": g["of_largest"] for n, g in two.items()
+           if not g["of_largest"] <= DP_UPDATE_TOL}
+    bad.update({k: v for k, v in m_two.items() if not v <= DP_METRIC_TOL})
+    if not bn_gap <= 1e-6:
+        bad["bn"] = bn_gap
+    if not same:
+        bad["ranks_identical"] = False
+    want = {k: one_launches[k] for k in ("fwd", "bwd")}
+    if any({k: r["launches"][k] for k in want} != want for r in ranks):
+        bad["launches"] = [r["launches"] for r in ranks]
+    if not all(g["of_largest"] > DP_UPDATE_TOL for n, g in control.items()):
+        bad["control_within_bound"] = control
+    if bad:
+        raise AssertionError(f"SGD witness: two ranks differ from one beyond the bounds: {bad}")
+    return {"one_rank": one_launches, **{f"rank{r}": x["launches"] for r, x in enumerate(ranks)}}
+
+
+def net_weights(result) -> dict:
+    """A copy of a run's trained weights by net (the GAN's, the posenet's),
+    taken before anything trains them further."""
+    gan = result["gan"]
+    nets = {"posenet": result["posenet"]}
+    if gan is not None:
+        nets.update(gen=gan.gen, d3d=gan.d3d, d2d=gan.d2d)
+        if hasattr(gan, "md3d"):
+            nets.update(md3d=gan.md3d, md2d=gan.md2d)
+    return {name: {"params": {k: v.detach().clone() for k, v in net.named_parameters()},
+                   "buffers": {k: v.detach().clone() for k, v in net.named_buffers()
+                               if v.is_floating_point()}}
+            for name, net in nets.items()}
+
+
+def weight_gaps(got: dict, want: dict) -> dict:
+    """By net: the largest gap of a parameter and of a batch-norm buffer."""
+    gap = lambda name, kind: max((float((got[name][kind][k].to(v.device) - v).abs().max())
+                                  for k, v in want[name][kind].items()), default=0.0)
+    return {name: {"params_max_abs": gap(name, "params"), "buffers_max_abs": gap(name, "buffers")}
+            for name in want}
+
+
+def iteration_scalars(run_dir: Path, tag: str) -> dict:
+    """A run's per-iteration scalar ``tag`` from its metrics.jsonl."""
+    out = {}
+    for line in (run_dir / "metrics.jsonl").read_text().splitlines():
+        row = json.loads(line)
+        if row["tag"] == tag:
+            out[row["step"]] = row["value"]
+    return out
+
+
+class BusySampler:
+    """Samples ``nvidia-smi``'s utilization.gpu (the share of each sample
+    period in which a kernel ran on the card, from any process) every
+    100 ms while the block runs: the busy share of work spread over
+    several processes, which torch.profiler in one process cannot see."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        samples = [int(x) for x in out.split() if x.strip().isdigit()]
+        self.samples = len(samples)
+        self.busy = sum(samples) / (100.0 * len(samples)) if samples else None
+        return False
+
+
+def dp_run(label: str, args: list, reference: dict, tags) -> dict:
+    """``args`` on two gloo ranks sharing cuda:0 through the library
+    launcher, the card's busy share sampled meanwhile (BusySampler),
+    against the one-rank ``reference`` run of the same command: each rank's
+    B1/B2 launches and the first iteration's Wasserstein estimates ``tags``
+    are held; the later iterations' gaps, the trained weights' gaps and the
+    H36M P1 are printed."""
+    from dhaug_torch.parallel import mesh
+    t0, started = time.perf_counter(), time.time()
+    with BusySampler() as sampler:
+        result = mesh.launch_main("dhaug_torch.run_fk_gan", args, DP_DEVICES, "gloo")
+    wall = time.perf_counter() - t0
+    ranks = result["ranks"]
+    # the launcher's own seconds: starting the ranks until each starts its
+    # run, and from the last run's end to its result loaded here
+    overhead = {"to_run_s": [r["started_at"] - started for r in ranks],
+                "after_run_s": started + wall - max(r["ended_at"] for r in ranks)}
+    gaps = weight_gaps(net_weights(result), reference["nets"])
+    w_first, w_gaps = {}, {}
+    for tag in tags:
+        got = iteration_scalars(Path(result["run_dir"]), tag)
+        want = iteration_scalars(reference["run_dir"], tag)
+        if sorted(got) != sorted(want) or not want:
+            raise AssertionError(f"{label}: iterations of {tag}: {sorted(got)} vs {sorted(want)}")
+        # each gap over the larger of the critic's mean scores and 1, as
+        # tests/test_torch_video.py scales it (an estimate is a difference
+        # of two scores, and can cancel)
+        scores = [iteration_scalars(reference["run_dir"], tag.replace("Wasserstein_D", part))
+                  for part in ("D_real", "D_fake")]
+        scale = {i: max([1.0, abs(want[i])] + [abs(s[i]) for s in scores if i in s])
+                 for i in want}
+        w_gaps[tag] = [abs(got[i] - want[i]) / scale[i] for i in sorted(want)]
+        if 0 in want:     # the motion critics join later, on updated nets
+            w_first[tag] = w_gaps[tag][0]
+    p1_gap = abs(result["scores"]["h36m"]["p1"] - reference["scores"]["h36m"]["p1"])
+    emit({"phase": "data_parallel", "path": label, "ranks": len(ranks), "backend": "gloo",
+          "launcher_wall_s": wall, "launcher_overhead": overhead,
+          "rank_wall_s": [r["wall_s"] for r in ranks],
+          "epoch_seconds": result["epoch_seconds"],
+          "one_rank_epoch_seconds": reference["epoch_seconds"],
+          "one_rank_seconds": reference["seconds"],
+          "busy_share_of_launcher_wall": sampler.busy, "busy_samples": sampler.samples,
+          "collective_calls": [r["collective_calls"] for r in ranks],
+          "collective_s": [r["collective_s"] for r in ranks],
+          "collective_share": [r["collective_s"] / r["wall_s"] for r in ranks],
+          "rank_launches": result["rank_launches"], "one_rank_launches": reference["launches"],
+          "weight_gaps": gaps, "wasserstein_rel_gap_by_iteration": w_gaps,
+          "h36m_p1": result["scores"]["h36m"]["p1"],
+          "one_rank_h36m_p1": reference["scores"]["h36m"]["p1"], "h36m_p1_gap_mm": p1_gap})
+    check_scores(label, result["scores"])
+    want = {k: reference["launches"][k] for k in ("fwd", "bwd")}
+    for r, counts in enumerate(result["rank_launches"]):
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"{label}: rank {r} launched {counts}, one rank {want}")
+    bad = {k: v for k, v in w_first.items() if not v <= DP_WASSERSTEIN_TOL}
+    if bad:
+        raise AssertionError(f"{label}: two ranks differ from one beyond the bounds: {bad}")
+    return result["rank_launches"]
+
+
+def dp_synthesis(fk_cuda, trunk_cuda, snapshot: Path, one_process: dict) -> list:
+    """(e) ``python -m dhaug_torch.synthesize_dataset`` as two processes on
+    cuda:0 joined by ``--coordinator``: B3 and B1 at 4096 rows a process
+    and batch; process 0's npz must equal the two shards' streams run in
+    this process, and keep every bone in the scaler range.  Beside it the
+    same command as one fresh process (its loop, like theirs, pays the
+    process's first launches; the synth phase's ran warm)."""
+    import numpy as np
+    import torch
+    from dhaug_torch.gan.wgan import camera_bank
+    from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
+    from dhaug_torch.ops.bones import bone_lengths_fk
+    from dhaug_torch.ops.fk import CANONICAL_BONE_LEN
+    from dhaug_torch.parallel import mesh
+    from dhaug_torch.parallel.sharded import make_sharded_synthesizer, stream
+    from dhaug_torch import synthesize_dataset
+    from dhaug_torch.utils.checkpoint import load_snapshot, restore_into
+
+    out = REPO / "_runs" / "chip_smoke" / "dh_synth_2proc.npz"
+    code = ("import json, sys\n"
+            "from dhaug_torch import synthesize_dataset\n"
+            "from dhaug_torch.parallel import mesh\n"
+            "r = synthesize_dataset.main(sys.argv[1:])\n"
+            "print(json.dumps({'launches': mesh.kernel_launches(), 'seconds': r['seconds'],\n"
+            "                  'poses_per_s': r['poses_per_s']}))\n")
+    flags = ["--ckpt", str(snapshot), "--n_poses", str(SYNTH_POSES), "--batch", str(SYNTH_B),
+             "--Gen_DenseDim", str(SYNTH_D), "--device", "cuda", "--out", str(out),
+             "--coordinator", f"localhost:{mesh.free_port()}", "--num_processes", "2"]
+    one = subprocess.run([sys.executable, "-c", code, *flags[:-6], "--out",
+                          str(out.with_name("dh_synth_1proc.npz"))], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    if one.returncode != 0:
+        raise AssertionError(f"one-process synthesis failed: {one.stderr[-3000:]}")
+    one = json.loads(one.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    with BusySampler() as sampler:
+        procs = [subprocess.Popen([sys.executable, "-c", code, *flags, "--process_id", str(i)],
+                                  cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for i in range(2)]
+        try:
+            outputs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    wall = time.perf_counter() - t0
+    for p, (stdout, stderr) in zip(procs, outputs):
+        if p.returncode != 0:
+            raise AssertionError(f"synthesis process failed ({p.returncode}): {stderr[-3000:]}")
+    ranks = [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in outputs]
+    n_batches = SYNTH_POSES // SYNTH_B
+    for r in ranks:
+        if r["launches"] != {"fwd": n_batches, "bwd": 0, "trunk": n_batches}:
+            raise AssertionError(f"a synthesis process launched {r['launches']}")
+
+    data = np.load(out)
+    if int(data["n_devices"]) != 2 or data["pose3d"].shape != (SYNTH_POSES, 16, 3):
+        raise AssertionError(f"npz n_devices {data['n_devices']}, shape {data['pose3d'].shape}")
+    device = torch.device("cuda", 0)
+    cfg = GeneratorConfig(dense_dim=SYNTH_D)
+    net = FkGeneratorNet(cfg)
+    restore_into(net, load_snapshot(str(snapshot))["gen_state"]["model"])
+    ops = trunk_cuda.trunk_weights(net.to(device).eval())
+    synthesize = make_sharded_synthesizer(cfg, n_devices=2)
+    cameras = camera_bank(list(synthesize_dataset.CAMERA_SUBJECTS), device)
+    bl = torch.tensor(CANONICAL_BONE_LEN, dtype=torch.float32, device=device)
+    bone_len = bl.expand(SYNTH_B, 15).contiguous()
+    gap = 0.0
+    for i in range(n_batches):
+        cam_idx = torch.randint(0, cameras[0].shape[0], (), generator=stream(device, 1, i),
+                                device=device)
+        cam3d, pose2d, _ = synthesize_dataset.synth_pairs(
+            synthesize, ops, bone_len, cameras, [stream(device, 1, i, s) for s in range(2)],
+            cam_idx=cam_idx)
+        rows = slice(i * SYNTH_B, (i + 1) * SYNTH_B)
+        gap = max(gap, float(np.abs(data["pose3d"][rows] - cam3d.cpu().numpy()).max()),
+                  float(np.abs(data["pose2d"][rows] - pose2d.cpu().numpy()).max()))
+    lengths = bone_lengths_fk(torch.from_numpy(data["pose3d"]))
+    lo, hi = SCALER_RANGE
+    blc = bl.cpu()
+    below = float((lo * blc - lengths).max())
+    above = float((lengths - hi * blc).max())
+    emit({"phase": "data_parallel", "path": "synthesis", "processes": 2, "backend": "gloo",
+          "wall_s": wall, "process_seconds": [r["seconds"] for r in ranks],
+          "busy_share_of_wall": sampler.busy, "busy_samples": sampler.samples,
+          "poses_per_s": ranks[0]["poses_per_s"],
+          "one_process_cli_poses_per_s": one["poses_per_s"],
+          "one_process_cli_seconds": one["seconds"],
+          "synth_phase_poses_per_s": one_process["cli_poses_per_s"],
+          "rank_launches": [r["launches"] for r in ranks], "max_gap_to_in_process": gap,
+          "bone_len_below_m": below, "bone_len_above_m": above})
+    if not gap <= 1e-6:
+        raise AssertionError(f"2-process npz differs from the in-process shards by {gap}")
+    if below > BONE_ATOL or above >= 0:
+        raise AssertionError(f"2-process bone lengths outside the scaler range: {below} m "
+                             f"below, {above} m above")
+    return [r["launches"] for r in ranks]
+
+
+def phase_data_parallel(fk_cuda, trunk_cuda, main_ref: dict, video_ref: dict,
+                        synth_ref: dict) -> dict:
+    """--data_parallel_devices and multi-process synthesis on the one card:
+    (a) the main command with --data_parallel_devices 2 must stop before
+    any launch (one card visible); (b) the main command in an NCCL group of
+    one rank on cuda:0 (every all-reduce and gather runs) must train the
+    main phase's weights bit for bit; the full-width SGD witness (two gloo
+    ranks vs one); (c) the main command on two gloo ranks sharing cuda:0
+    (512 poses a rank in B1/B2) and (d) the video command (2304 poses a
+    rank) against the main and video phases' one-rank runs; (e) synthesis
+    in two processes.  Two ranks on one card compete
+    for it: their times are no scaling number."""
+    import torch
+    from dhaug_torch import run_fk_gan
+    from dhaug_torch.parallel import mesh
+
+    launches = {}
+    reset_counts(fk_cuda, trunk_cuda)
+    args = MAIN_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
+                        "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_refused")]
+    try:
+        run_fk_gan.main(args)
+        raise AssertionError("--data_parallel_devices 2 ran on one card")
+    except SystemExit as exc:
+        message = str(exc)
+    launches["dp_refused"] = read_counts(fk_cuda, trunk_cuda)
+    emit({"phase": "data_parallel", "path": "refused", "message": message,
+          "launches": launches["dp_refused"]})
+    if "requests 2 devices but only 1 device(s)" not in message or \
+            any(launches["dp_refused"].values()):
+        raise AssertionError(f"refusal: {message!r}, launches {launches['dp_refused']}")
+
+    calls0 = mesh.COLLECTIVE_CALLS
+    mesh.join("nccl", torch.device("cuda", 0), 0, 1, f"tcp://localhost:{mesh.free_port()}")
+    try:
+        args = MAIN_ARGS + ["--data_root", str(REPO),
+                            "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_nccl1")]
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        result = run_fk_gan.main(args)
+        seconds = time.perf_counter() - t0
+        launches["dp_nccl_world1"] = read_counts(fk_cuda, trunk_cuda)
+    finally:
+        mesh.leave()
+    weights = net_weights(result)
+    differ = [f"{name}.{k}" for name, ref in main_ref["nets"].items()
+              for kind in ("params", "buffers") for k, v in ref[kind].items()
+              if not torch.equal(weights[name][kind][k], v)]
+    emit({"phase": "data_parallel", "path": "nccl_world_1", "seconds": seconds,
+          "epoch_seconds": result["epoch_seconds"], "launches": launches["dp_nccl_world1"],
+          "collective_calls": mesh.COLLECTIVE_CALLS - calls0, "tensors_differing": differ})
+    if differ or launches["dp_nccl_world1"] != main_ref["launches"] or \
+            mesh.COLLECTIVE_CALLS == calls0:
+        raise AssertionError(f"NCCL world 1: {len(differ)} tensors differ from the one-device "
+                             f"run ({differ[:5]}), launches {launches['dp_nccl_world1']}")
+
+    for who, counts in dp_sgd_witness(fk_cuda, trunk_cuda).items():
+        launches[f"dp_sgd_witness_{who}"] = counts
+    tags = ["train_G_iter_PoseFk/Fk_d3d_Wasserstein_D", "train_G_iter_PoseFk/d2d_Wasserstein_D"]
+    args = MAIN_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
+                        "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_main")]
+    for r, counts in enumerate(dp_run("main_2_ranks", args, main_ref, tags)):
+        launches[f"dp_main_rank{r}"] = counts
+    args = VIDEO_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
+                         "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_video")]
+    tags += ["train_G_iter_PoseFk/motion_Fk_d3d_Wasserstein_D",
+             "train_G_iter_PoseFk/motion_d2d_Wasserstein_D"]
+    for r, counts in enumerate(dp_run("video_2_ranks", args, video_ref, tags)):
+        launches[f"dp_video_rank{r}"] = counts
+    for r, counts in enumerate(dp_synthesis(fk_cuda, trunk_cuda, main_ref["run_dir"] /
+                                            "ckpt_resume_latest.ckpt", synth_ref)):
+        launches[f"dp_synth_process{r}"] = counts
+    return launches
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (REPO / "dhaug_torch" / "__init__.py").is_file():
@@ -1049,18 +1660,21 @@ def main() -> int:
 
     fwd_err, bwd_err, times, fwd_bound, bwd_bound = phase_kernels(fk_plain, fk_cuda, device)
     trunk_err, trunk_times, trunk_bound = phase_trunk_kernel(trunk_cuda, device)
-    main_launches, gan, run_dir = phase_main(fk_cuda, trunk_cuda, device)
+    main_launches, gan, run_dir, main_ref = phase_main(fk_cuda, trunk_cuda, device)
     phase_profile(gan, device)
-    synth_launches = phase_synth(fk_cuda, trunk_cuda, run_dir, device)
+    synth_launches, synth_ref = phase_synth(fk_cuda, trunk_cuda, run_dir, device)
     posenet_launches, posenet_dirs = phase_posenets(fk_cuda, trunk_cuda)
     augment_launches = phase_augment(fk_cuda, trunk_cuda)
     baseline_launches = phase_baseline(fk_cuda, trunk_cuda, posenet_dirs["gcn"])
-    video_launches = phase_video(fk_cuda, trunk_cuda)
+    video_launches, video_ref = phase_video(fk_cuda, trunk_cuda)
     extras_launches = phase_cli_extras(fk_cuda, trunk_cuda, device)
+    t0 = time.perf_counter()
+    dp_launches = phase_data_parallel(fk_cuda, trunk_cuda, main_ref, video_ref, synth_ref)
+    emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0})
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
              **augment_launches, "baseline": baseline_launches, **video_launches,
-             **extras_launches}
+             **extras_launches, **dp_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 

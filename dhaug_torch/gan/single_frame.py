@@ -13,7 +13,11 @@ Port of ``dhaug_tpu/gan/single_frame.py:33-295``:
 
 Both functions consume the numpy stream exactly as the JAX package does
 (the re-skin's per-chunk template draws, the epoch's two permutations), so
-a port run and a JAX run seeded alike see the same data every epoch.
+a port run and a JAX run seeded alike see the same data every epoch.  Under
+data parallelism (``parallel/mesh.py``) every rank re-skins the whole set
+and draws the same permutations, then takes its rows of each batch; the
+epoch's fakes are gathered in the one-device order and its scalars averaged
+over the ranks, so every rank ends the epoch with the one-device buffers.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from dhaug_torch.models.discriminators import Fk2DDiscriminator, Fk3DDiscriminat
 from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig, head_to_angles
 from dhaug_torch.ops.bones import reskin_pose
 from dhaug_torch.ops.camera import project_to_2d
+from dhaug_torch.parallel import mesh
 from dhaug_torch.train.state import adam_gan
 
 # The JAX package re-skins in fixed 16384-row chunks and draws 16384 template
@@ -128,6 +133,7 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
     n_batches = min(n, n_t2d, len(target_3d)) // batch_size
     if n_batches == 0:
         return None
+    dp = mesh.current()
     B = batch_size
     idx_real = np_rng.permutation(n)[: n_batches * B].reshape(n_batches, B)
     idx_t2d = np_rng.permutation(n_t2d)[: n_batches * B].reshape(n_batches, B)
@@ -139,7 +145,7 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
     scalars = {k: [] for k in _SCALAR_KEYS + ("g_cost",)}
     nan = torch.full((), float("nan"), device=device)
     for b in range(n_batches):
-        sel_r, sel_t = idx_real[b], idx_t2d[b]
+        sel_r, sel_t = dp.rows(idx_real[b]), dp.rows(idx_t2d[b])
         cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
             dev_3d[sel_r], dev_cam[sel_r], dev_t2d[sel_t], generator)
         g_cost = nan
@@ -157,9 +163,10 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
                                            if (iter_base + b) % 5 == 4)
     summary.train_iter_num += n_batches
 
-    # one device->host transfer for the epoch's per-iteration scalars
+    # one device->host transfer for the epoch's per-iteration scalars,
+    # averaged over the ranks
     keys = list(scalars)
-    host = torch.stack([torch.stack(scalars[k]) for k in keys]).cpu().numpy()
+    host = dp.mean(torch.stack([torch.stack(scalars[k]) for k in keys])).cpu().numpy()
     scalars = dict(zip(keys, host))
 
     if writer is not None:
@@ -187,4 +194,15 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
         epoch_scalars["g_cost"] = float(np.nanmean(scalars["g_cost"]))
     summary.record_epoch_scalars(epoch_scalars)
 
-    return PoseDataset(torch.cat(fake3d), torch.cat(fake2d), torch.cat(intrs))
+    return PoseDataset(*(gather_batches(dp, parts) for parts in (fake3d, fake2d, intrs)))
+
+
+def gather_batches(dp: mesh.DataParallel, parts) -> torch.Tensor:
+    """An epoch's per-batch tensors (this rank's rows of each batch), every
+    rank's rows gathered and put back in the one-device order: batch by
+    batch, each batch's rows in rank order."""
+    local = torch.stack(parts)                                # (n_batches, B/N, ...)
+    if dp.group is None:
+        return local.reshape((-1,) + local.shape[2:])
+    every = dp.all_gather_rows(local[None])                   # (N, n_batches, B/N, ...)
+    return every.transpose(0, 1).reshape((-1,) + local.shape[2:])

@@ -27,7 +27,10 @@ one permutation of the clip windows an epoch from the loader's own numpy
 stream, clip windows gathered on the device, the critics every iteration
 and the generator when the global iteration ``it % 5 == 4``.  Random draws
 come from a ``torch.Generator``; each can be injected instead (``noise``,
-``scaler8``, ``cam_idx``, the 12 GP ``alphas``).
+``scaler8``, ``cam_idx``, the 12 GP ``alphas``).  Under data parallelism
+each rank takes its rows of every batch of clips, B x F / N poses in the FK
+kernels, with the draws and the gradient all-reduce of ``gan/wgan.py``; the
+epoch's fake clips are gathered and its scalars averaged over the ranks.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from dhaug_torch.gan.single_frame import gather_batches
 from dhaug_torch.gan.wgan import GanHyper, SingleFrameSteps, _step, camera_bank, critic_step
 from dhaug_torch.models.discriminators import (Fk2DDiscriminator, Fk3DDiscriminator,
                                                MotionFk2DDiscriminator,
@@ -44,6 +48,7 @@ from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
 from dhaug_torch.ops.augment import flip_pose, time_reverse
 from dhaug_torch.ops.bones import bone_lengths_fk
 from dhaug_torch.ops.camera import camera_to_world_batch, project_to_2d, world_to_camera_batch
+from dhaug_torch.parallel import mesh
 from dhaug_torch.train.state import adam_gan
 
 # per-iteration scalars under the reference's writer names
@@ -237,6 +242,7 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
     if n_batches == 0:
         return None
     device = steps.cam_quats.device
+    dp = mesh.current()
     B = batch_size
     big3d = torch.as_tensor(loader.big3d, device=device)
     big2d = torch.as_tensor(loader.big2d, device=device)
@@ -253,9 +259,10 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
     nan = torch.full((), float("nan"), device=device)
     fake3d, fake2d, intrs = [], [], []
     for b in range(n_batches):
+        s3, s2 = dp.rows(start3d[b]), dp.rows(start2d[b])
         cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
-            big3d[start3d[b][:, None] + win], cams[cam_sel[b]],
-            big2d[start2d[b][:, None] + win], generator, use_motion)
+            big3d[s3[:, None] + win], cams[dp.rows(cam_sel[b])],
+            big2d[s2[:, None] + win], generator, use_motion)
         g_cost = nan
         if (iter_base + b) % 5 == 4:
             g_cost = steps.generator_step(bone_len, cam_idx, generator, use_motion)["g_cost"]
@@ -271,9 +278,10 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
                                            if (iter_base + b) % 5 == 4)
     summary.train_iter_num += n_batches
 
-    # one device->host transfer for the epoch's per-iteration scalars
+    # one device->host transfer for the epoch's per-iteration scalars,
+    # averaged over the ranks
     tags = list(scalars)
-    host = torch.stack([torch.stack(scalars[t]) for t in tags]).cpu().numpy()
+    host = dp.mean(torch.stack([torch.stack(scalars[t]) for t in tags])).cpu().numpy()
     scalars = dict(zip(tags, host))
     # G_cost is NaN off the generator iterations; skip all-NaN columns
     summary.record_epoch_scalars({t: float(np.nanmean(v)) for t, v in scalars.items()
@@ -284,4 +292,4 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
             for b in steps_of:
                 writer.add_scalar(f"train_G_iter_PoseFk/{tag}", float(vals[b]),
                                   iter_base + int(b))
-    return torch.cat(fake3d), torch.cat(fake2d), torch.cat(intrs)
+    return tuple(gather_batches(dp, parts) for parts in (fake3d, fake2d, intrs))

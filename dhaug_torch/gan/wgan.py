@@ -18,6 +18,12 @@ Random draws come from an explicit ``torch.Generator``; every draw can also
 be injected (``noise``, ``scaler8``, ``cam_idx``, ``alphas``) so tests feed
 both packages the same numbers.  The optimizers are passed in, so tests can
 substitute SGD.
+
+Under data parallelism (``parallel/mesh.py``) the steps take this rank's
+rows of the batch.  Every draw, and every injected one, has the global
+batch shape and the rank keeps its rows, so N ranks draw what one device
+draws; each update's gradients are averaged over the ranks (``_step``), as
+GSPMD's all-reduce does for the JAX package's steps.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from dhaug_torch.models.generator import GeneratorConfig, sample_scaler8, synthe
 from dhaug_torch.ops.augment import flip_pose
 from dhaug_torch.ops.bones import bone_lengths_fk
 from dhaug_torch.ops.camera import camera_to_world_batch, project_to_2d, world_to_camera_batch
+from dhaug_torch.parallel import mesh
 
 
 class GanHyper(NamedTuple):
@@ -59,8 +66,9 @@ def camera_bank(train_subjects, device=None):
 
 
 def _step(opt: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:
-    """Gradient of ``loss`` for ``params`` only, then one optimizer step."""
-    grads = torch.autograd.grad(loss, params)
+    """Gradient of ``loss`` for ``params`` only, averaged over the ranks of
+    a data-parallel group, then one optimizer step."""
+    grads = mesh.current().all_reduce_grads(torch.autograd.grad(loss, params))
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
@@ -73,14 +81,17 @@ def critic_step(critic: torch.nn.Module, opt: torch.optim.Optimizer,
     """One critic update.  ``gp_granularity`` g splits each sample into g
     GP rows: the interpolation alpha is drawn per row and the gradient norm
     taken per row (the motion-2D critic interpolates per frame).  ``alpha``
-    (B x g, 1) overrides the draw.  Returns the logged scalars as 0-d
-    tensors."""
+    (global B x g, 1) overrides the draw.  Returns the logged scalars (this
+    rank's means) as 0-d tensors."""
+    dp = mesh.current()
     B = real.shape[0]
     Bg = B * gp_granularity
     r = real.reshape(Bg, -1)
     f = fake.reshape(Bg, -1)
     if alpha is None:
-        alpha = torch.rand((Bg, 1), generator=generator, device=r.device, dtype=r.dtype)
+        alpha = torch.rand((Bg * dp.world, 1), generator=generator, device=r.device,
+                           dtype=r.dtype)
+    alpha = dp.rows(alpha)
     interp = (alpha * r + (1.0 - alpha) * f).requires_grad_(True)
     stacked = torch.cat([r, f, interp]).reshape((3 * B,) + tuple(real.shape[1:]))
     scores = critic(stacked)
@@ -110,17 +121,18 @@ class SingleFrameSteps:
         self.cam_quats, self.cam_trans, self.cam_intrs = cam_quats, cam_trans, cam_intrs
 
     def synth_fake(self, bone_len, generator, noise=None, scaler8=None):
-        """noise -> fake world pose (B, 16, 3); ``noise``/``scaler8``
-        override the draws."""
-        B = bone_len.shape[0]
+        """noise -> fake world pose (B, 16, 3) for this rank's rows of bone
+        lengths; ``noise``/``scaler8`` (global batch) override the draws."""
+        dp = mesh.current()
+        B = bone_len.shape[0] * dp.world
         if noise is None:
             noise = torch.randn((B, self.hyper.noise_dim), generator=generator,
                                 device=bone_len.device)
-        head = self.gen(noise)
+        head = self.gen(dp.rows(noise))
         if scaler8 is None:
             scaler8 = sample_scaler8(B, self.hyper.bone_len_scaler, generator,
                                      bone_len.device)
-        return synthesize_poses(head, bone_len, scaler8, self.gen_cfg)
+        return synthesize_poses(head, bone_len, dp.rows(scaler8), self.gen_cfg)
 
     def critics_step(self, real_3d_cam, cam_param16, target_2d, generator,
                      noise=None, scaler8=None, cam_idx=None,

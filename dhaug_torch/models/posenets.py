@@ -17,11 +17,15 @@ port ``state_dict`` load alike with one strict ``load_state_dict``.
 package wrote by hand: it normalizes with the biased batch variance and
 updates the running variance with the unbiased one.  The temporal net and
 SemGCN pool its statistics over batch and frames, or batch and joints.
+Under data parallelism (``parallel/mesh.py``) it averages over the global
+batch in train mode, as flax's ``BatchNorm`` does under a GSPMD mesh
+(:class:`BatchNorm1d`).
 
 Every ``forward`` takes ``(x, generator=None)``: dropout and drop-path draw
 from that explicit ``torch.Generator`` (on the tensors' device), so a run is
 reproducible from its seed; without one they fall back to torch's default
-generator.
+generator.  A rank of a data-parallel group draws each mask at the global
+batch shape and keeps its own rows, so N ranks draw what one device draws.
 """
 from __future__ import annotations
 
@@ -34,13 +38,25 @@ from torch import nn
 from torch.nn import functional as F
 
 from dhaug_torch.models.blocks import dense, he_normal_, lecun_normal_
+from dhaug_torch.parallel import mesh
+
+
+def _empty_like_global(x: torch.Tensor, world: int) -> torch.Tensor:
+    """An uninitialised tensor of ``x``'s layout with ``world`` times its
+    leading axis: the mask one device would draw for the global batch."""
+    if world == 1:
+        return torch.empty_like(x)
+    order = sorted(range(x.ndim), key=lambda d: -x.stride(d))   # outermost first
+    shape = [x.shape[0] * world if d == 0 else x.shape[d] for d in order]
+    return x.new_empty(shape).permute([order.index(d) for d in range(x.ndim)])
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     if not training or p == 0.0:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    dp = mesh.current()
+    keep = dp.rows(_empty_like_global(x, dp.world).bernoulli_(1.0 - p, generator=generator))
     return x * keep / (1.0 - p)
 
 
@@ -49,13 +65,40 @@ def drop_path(x: torch.Tensor, p: float, training: bool,
     """Stochastic depth: drop a sample's whole residual branch."""
     if not training or p == 0.0:
         return x
-    keep = x.new_empty((x.shape[0],) + (1,) * (x.ndim - 1)).bernoulli_(
+    dp = mesh.current()
+    keep = x.new_empty((x.shape[0] * dp.world,) + (1,) * (x.ndim - 1)).bernoulli_(
         1.0 - p, generator=generator)
-    return x * keep / (1.0 - p)
+    return x * dp.rows(keep) / (1.0 - p)
 
 
-def batch_norm(dim: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(dim, eps=1e-5, momentum=0.1)
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (same parameters, buffers and ``state_dict``
+    names) whose train-mode statistics cover the global batch of a
+    data-parallel group: the per-channel sum, then the sum of squared
+    deviations from the global mean, each summed over the ranks through an
+    autograd-aware all-reduce.  A single device runs ``nn.BatchNorm1d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dp = mesh.current()
+        if not (self.training and dp.sharded):
+            return super().forward(x)
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        n = x.numel() // x.shape[1] * dp.world
+        mean = mesh.sum_across(x.sum(dims)) / n
+        xc = x - mean.reshape(shape)
+        var = mesh.sum_across((xc * xc).sum(dims)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var * (n / (n - 1)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        y = xc * torch.rsqrt(var + self.eps).reshape(shape)
+        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+
+def batch_norm(dim: int) -> BatchNorm1d:
+    return BatchNorm1d(dim, eps=1e-5, momentum=0.1)
 
 
 def pad_hip(out15: torch.Tensor) -> torch.Tensor:

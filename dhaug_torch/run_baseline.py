@@ -24,7 +24,9 @@ JAX CLI does.
         --epochs 50 --batch_size 1024
 
 Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
-card raises.
+card raises.  ``--data_parallel_devices N`` trains on N ranks, one process a
+device (``parallel/mesh.py``), as ``run_fk_gan`` does; rank 0 writes every
+file.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 
 import dhaug_torch
 from dhaug_torch.models.factory import make_posenet
+from dhaug_torch.parallel import mesh
 from dhaug_torch.train.config import parse_baseline_args
 from dhaug_torch.train.data_prep import prepare_data
 from dhaug_torch.train.posenet import evaluate_both, train_epoch
@@ -77,12 +80,18 @@ def training_pairs(args, bundle):
 
 def main(argv=None) -> dict:
     """Train; returns the best H36M and 3DHP P1 (mm), the run directory,
-    the per-epoch wall seconds and the trained posenet."""
+    the per-epoch wall seconds and the trained posenet (with
+    ``--data_parallel_devices N``, rank 0's, and ``rank_launches``)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_baseline_args(argv)
     if args.pretrain and not args.evaluate:
         raise SystemExit("--pretrain true requires --evaluate <posenet checkpoint>")
     refuse_unported(args)
-    device = dhaug_torch.resolve_device(args.device)
+    launched = mesh.launch_from_args(args, "dhaug_torch.run_baseline", argv)
+    if launched is not None:
+        return launched
+    dp = mesh.current()
+    device = dp.device if dp.group is not None else dhaug_torch.resolve_device(args.device)
 
     np_rng = np.random.default_rng(args.random_seed)
     torch.manual_seed(args.random_seed)  # weight initialisation
@@ -101,6 +110,7 @@ def main(argv=None) -> dict:
         resolve_posenet_weights(load_posenet_checkpoint(args.evaluate), model,
                                 args.posenet_name)
         print(f"==> Pretrained posenet loaded from {args.evaluate} (warm-start fine-tuning)")
+    dp.broadcast_modules(model)
 
     opt = adam_posenet(model.parameters(), args.lr)
     max_norm = 1.0 if args.max_norm else 1e9
@@ -154,10 +164,12 @@ def main(argv=None) -> dict:
     logger.close()
     summary.close()
     # final metric-curve plot (the reference dumps log.eps, run_baseline.py:70-71)
-    try:
-        plot_metric_curves(os.path.join(run_dir, "log.txt"), os.path.join(run_dir, "log.png"))
-    except Exception as exc:  # plotting must never fail a training run
-        print(f"(metric plot skipped: {exc})")
+    if dp.is_main:
+        try:
+            plot_metric_curves(os.path.join(run_dir, "log.txt"),
+                               os.path.join(run_dir, "log.png"))
+        except Exception as exc:  # plotting must never fail a training run
+            print(f"(metric plot skipped: {exc})")
     print(f"Best H36M P1: {best_h36m:.2f} mm | best 3DHP P1: {best_dhp:.2f} mm")
     return {"best_h36m": best_h36m, "best_dhp": best_dhp, "run_dir": run_dir,
             "epoch_seconds": epoch_seconds, "posenet": model}

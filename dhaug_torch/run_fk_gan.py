@@ -37,9 +37,15 @@ of the synthetic fixture are written there (``data/synthetic.py``).
 parameters).  ``--record_all_picture true`` (needs matplotlib) dumps fake
 and real poses every epoch and the angle heatmap every 500 iterations under
 ``<run dir>/tmp/``, and the GAN's epoch-mean curves last.  Flags that need
-code not ported yet are refused with an error (the orbax format,
-multi-device).  Besides the checkpoints the run writes ``log.txt`` and
+code not ported yet are refused with an error (the orbax format, tensor
+parallelism).  Besides the checkpoints the run writes ``log.txt`` and
 ``metrics.jsonl``.
+
+``--data_parallel_devices N`` trains on N ranks, one process a device
+(``parallel/mesh.py``: NCCL on N cards, gloo with ``--device cpu``), and
+equals the one-device run up to the order of reductions; under
+``torchrun`` the command joins the group it is given.  Rank 0 writes every
+file, and ``main`` returns its result.
 
 A snapshot resumes bit for bit on the device type that wrote it.  Resumed on
 the other type, the weights, optimizer states and numpy stream carry over,
@@ -62,6 +68,7 @@ from dhaug_torch.gan.traditional import (TraditionalConfig, generate_traditional
                                          project_through_cameras)
 from dhaug_torch.gan.wgan import camera_bank
 from dhaug_torch.models.factory import make_posenet
+from dhaug_torch.parallel import mesh
 from dhaug_torch.train.config import parse_aug_args
 from dhaug_torch.train.data_prep import prepare_data, train_subject_list, world_pose_pool
 from dhaug_torch.train.posenet import evaluate_both, train_epoch
@@ -118,7 +125,9 @@ def main(argv=None) -> dict:
     seconds, the per-epoch GAN scalars, the run directory, the trained GAN
     (None outside GAN mode), the posenet with its optimizer, and the
     torch.Generator.  With ``--pretrain true`` it returns what
-    ``run_evaluate.main`` returns."""
+    ``run_evaluate.main`` returns; with ``--data_parallel_devices N`` rank
+    0's result and ``rank_launches``, each rank's kernel launch counts."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_aug_args(argv)
     if args.pretrain and not args.evaluate:
         raise SystemExit("--pretrain true requires --evaluate <posenet checkpoint>")
@@ -126,7 +135,11 @@ def main(argv=None) -> dict:
     if args.pretrain:
         return _pretrain_evaluate(args)
     check_posenet_mode(args)
-    device = dhaug_torch.resolve_device(args.device)
+    launched = mesh.launch_from_args(args, "dhaug_torch.run_fk_gan", argv)
+    if launched is not None:
+        return launched
+    dp = mesh.current()
+    device = dp.device if dp.group is not None else dhaug_torch.resolve_device(args.device)
     print(f"==> device {device}; TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     method = args.data_enhancement_method
@@ -152,6 +165,7 @@ def main(argv=None) -> dict:
     real_3d = torch.as_tensor(bundle.train_det2d3d.poses_3d, device=device)
 
     gan = build_gan(args, train_subjects, device) if method == "GAN" else None
+    dp.broadcast_modules(posenet, *([gan.gen, gan.d3d, gan.d2d] if gan is not None else []))
 
     run_dir = make_run_dir(args)
     print(f"==> Making checkpoint dir: {run_dir}")
@@ -196,6 +210,7 @@ def main(argv=None) -> dict:
         lr_now = float(saved["lr_now"])
         dhpp1_best = saved["dhpp1_best"]
         s911p1_best = saved["s911p1_best"]
+        dp.broadcast_modules(*(net for net, _ in nets.values()))
         print(f"==> Resumed from {resume_path} at epoch {start_epoch}")
 
     def full_state_ckpt(now_epoch: int) -> dict:
@@ -217,11 +232,12 @@ def main(argv=None) -> dict:
             fake_ds = run_gan_epoch(gan, gt2d3d, PoseTarget(gt2d3d.poses_2d),
                                     PoseTarget(gt2d3d.poses_3d), args.batch_size, np_rng,
                                     generator, summary, summary.writer,
-                                    record_dir=tmp_dir if args.record_all_picture else None)
+                                    record_dir=tmp_dir if args.record_all_picture and dp.is_main
+                                    else None)
         elif method == "normal":
             pose16, *_ = generate_traditional_poses(generator, pose_pool, trad_cfg)
             fake_ds = PoseDataset(*project_through_cameras(pose16, *cams), None)
-        if args.record_all_picture and fake_ds is not None:
+        if args.record_all_picture and fake_ds is not None and dp.is_main:
             dump_epoch_pictures(tmp_dir, summary.epoch, fake_ds, gt2d3d)
 
         train_now = (summary.epoch > args.warmup and method == "GAN") or method == "normal"
@@ -272,7 +288,7 @@ def main(argv=None) -> dict:
               f"| 3DHP P1 {dhp['p1']:.2f} | {epoch_seconds[-1]:.2f} s")
         summary.epoch += 1
 
-    if args.record_all_picture and summary.epoch_scalar_history:
+    if args.record_all_picture and summary.epoch_scalar_history and dp.is_main:
         plot_scalar_curves(summary.epoch_scalar_history,
                            os.path.join(run_dir, "wasserstein_curves.png"),
                            title="GAN critic curves (epoch means)")

@@ -43,25 +43,24 @@ def _add_common(parser: argparse.ArgumentParser):
     parser.add_argument("--num_workers", default=0, type=int, metavar="N",
                         help="accepted for CLI compatibility; the host feed is single-process")
     parser.add_argument("--model_parallel_devices", default=1, type=int,
-                        help="shard Dense layers wider than 512 over a "
-                             "'model' mesh axis (tensor parallelism); "
-                             "composes with --data_parallel_devices into a "
-                             "(data, model) mesh of data*model devices")
+                        help="tensor parallelism (the JAX package shards Dense "
+                             "layers wider than 512 over a 'model' mesh axis); "
+                             "not ported yet: refused above 1 (ROADMAP A16b)")
     parser.add_argument("--ckpt_format", default="pickle", type=str,
                         choices=("pickle", "orbax"),
                         help="full-state snapshot format: 'pickle' (one "
-                             ".ckpt file) or 'orbax' (a ckpt_<suffix>/ orbax "
-                             "directory); --resume/--evaluate auto-detect "
-                             "either")
+                             ".ckpt file); 'orbax' (a ckpt_<suffix>/ "
+                             "directory in the JAX package) is not ported "
+                             "yet and refused (ROADMAP A16c)")
     # extensions beyond the reference's flags
     parser.add_argument("--data_root", default=".", type=str,
                         help="directory containing data/ and data_extra/")
     parser.add_argument("--synthetic_data", default=False, type=_str2bool,
                         help="fabricate a small synthetic dataset when the npz files are absent")
     parser.add_argument("--data_parallel_devices", default=0, type=int,
-                        help="run the compiled epoch programs data-parallel over "
-                             "this many devices (0/1 = single device); "
-                             "batch_size must divide by it")
+                        help="train data-parallel on this many devices, one "
+                             "process each (0/1 = single device; NCCL on cards, "
+                             "gloo with --device cpu); batch_size must divide by it")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu; cuda without a card raises")
     parser.add_argument("--bf16_trunk", default=False, type=_str2bool,

@@ -18,6 +18,7 @@ import numpy as np
 from dhaug_torch.data.h36m import TEST_SUBJECTS, Human36mDataset
 from dhaug_torch.data.synthetic import ensure_synthetic_dataset
 from dhaug_torch.data.validate import validate_dataset_dir
+from dhaug_torch.parallel import mesh
 from dhaug_torch.data.loaders import (PoseBuffer, PoseDataset, create_2d_data, fetch,
                                       np_camera_to_world, read_3d_data)
 
@@ -56,8 +57,13 @@ def prepare_data(args, per_frame_cam: bool = True) -> DataBundle:
     root = args.data_root
     if args.synthetic_data:
         # fills in only the missing files, so a fixture directory gains
-        # just what it lacks (e.g. the detected-2D file for --keypoints cpn)
-        ensure_synthetic_dataset(root, seed=args.random_seed, device=args.device)
+        # just what it lacks (e.g. the detected-2D file for --keypoints cpn);
+        # rank 0 of a data-parallel group writes them, the others wait
+        dp = mesh.current()
+        if dp.is_main:
+            ensure_synthetic_dataset(root, seed=args.random_seed,
+                                     device=dp.device or args.device)
+        dp.barrier()
     else:
         # the bone-template asset feeds only the GAN re-skin: the baseline
         # and evaluate parsers have no --data_enhancement_method

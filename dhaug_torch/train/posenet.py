@@ -12,6 +12,14 @@ Port of ``dhaug_tpu/train/posenet.py`` with ``train/runners.py``'s
   flip+playback duplicates, each a full optimizer update with its own
   dropout draw, over fake clips or real windows gathered by index; and the
   sequence-weighted whole-sequence evaluation.
+
+Under data parallelism (``parallel/mesh.py``) every pass draws the global
+permutation and each rank trains on its rows of every batch; the gradients
+are averaged over the ranks before the global-norm clip, so the clip sees
+the global gradient, and the returned mean loss is the ranks' mean.  The
+frame-weighted evaluation shards each batch over the ranks and
+all-reduces the sums of the per-frame errors; the sequence-weighted one
+runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 
 from dhaug_torch.ops.augment import flip_pose, time_reverse
 from dhaug_torch.ops.metrics import mpjpe, p_mpjpe_per_sample
+from dhaug_torch.parallel import mesh
 from dhaug_torch.train.state import clip_by_global_norm
 
 _AUC_THRESHOLDS = np.linspace(0.0, 150.0, 31)
@@ -42,6 +51,9 @@ def train_step(model, opt, inputs_2d, targets_3d_rel, max_norm: float,
         mpjpe(out, targets_3d_rel)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    params = [p for p in model.parameters() if p.grad is not None]
+    for p, g in zip(params, mesh.current().all_reduce_grads([p.grad for p in params])):
+        p.grad = g
     clip_by_global_norm(model.parameters(), max_norm)
     opt.step()
     return loss.detach()
@@ -62,14 +74,16 @@ def train_epoch(model, opt, poses_2d, poses_3d, np_rng: np.random.Generator,
     idx = torch.as_tensor(idx, device=device)
     dev2d = torch.as_tensor(poses_2d, device=device)
     dev3d = torch.as_tensor(poses_3d, device=device)
+    dp = mesh.current()
     losses = []
     for sel in idx:
+        sel = dp.rows(sel)
         x = dev2d[sel]
         y = root_relative(dev3d[sel])
         losses.append(train_step(model, opt, x, y, max_norm, generator))
         if flip:
             train_step(model, opt, flip_pose(x), flip_pose(y), max_norm, generator)
-    return float(torch.stack(losses).mean())
+    return float(dp.mean(torch.stack(losses).mean()))
 
 
 def video_steps(model, opt, x, y_rel, max_norm: float, generator=None, flip: bool = True,
@@ -101,10 +115,11 @@ def train_video_clips(model, opt, clips_2d, center_3d, np_rng: np.random.Generat
     if n_batches == 0:
         return float("nan")
     idx = np_rng.permutation(n)[: n_batches * batch_size].reshape(n_batches, batch_size)
-    idx = torch.as_tensor(idx, device=clips_2d.device)
+    dp = mesh.current()
+    idx = dp.rows(torch.as_tensor(idx, device=clips_2d.device).T).T   # rows of every batch
     losses = [video_steps(model, opt, clips_2d[sel], root_relative(center_3d[sel]), max_norm,
                           generator, flip, playback) for sel in idx]
-    return float(torch.stack(losses).mean())
+    return float(dp.mean(torch.stack(losses).mean()))
 
 
 def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_size: int,
@@ -121,6 +136,7 @@ def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_s
     device = next(model.parameters()).device
     order = np_rng.permutation(n)[: n_batches * batch_size]
     big2d, big3d = device_windows(loader, device)
+    dp = mesh.current()
     start2d = torch.as_tensor(loader.start2d[order].reshape(n_batches, batch_size),
                               device=device)
     idx3d = torch.as_tensor(loader.idx3d[order].reshape(n_batches, batch_size), device=device)
@@ -128,8 +144,8 @@ def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_s
     losses = [video_steps(model, opt, big2d[s2[:, None] + win],
                           root_relative(big3d[i3][:, None]), max_norm, generator, flip,
                           playback)
-              for s2, i3 in zip(start2d, idx3d)]
-    return float(torch.stack(losses).mean())
+              for s2, i3 in zip(dp.rows(start2d.T).T, dp.rows(idx3d.T).T)]
+    return float(dp.mean(torch.stack(losses).mean()))
 
 
 def device_windows(loader, device):
@@ -172,16 +188,6 @@ def predict(model, poses_2d, batch_size: int, flip: bool = False) -> torch.Tenso
                       for s in range(0, dev2d.shape[0], batch_size)])
 
 
-def _aggregate(p1, p2, err) -> Dict[str, float]:
-    """P1, P2 (mm), PCK@150 mm and AUC (%) over the frames given."""
-    return {
-        "p1": float(np.mean(p1)),
-        "p2": float(np.mean(p2)),
-        "pck": float(np.mean(err < 150.0) * 100.0),
-        "auc": float(np.mean([np.mean(err < t) * 100.0 for t in _AUC_THRESHOLDS])),
-    }
-
-
 _NAN_SCORES = {k: float("nan") for k in ("p1", "p2", "pck", "auc")}
 
 
@@ -191,18 +197,40 @@ def evaluate_batches(model, batches, flip: bool = False) -> Dict[str, float]:
     (inputs_2d, targets_3d[, valid]), tensors on the model's device; a
     ``valid`` count keeps a batch's first frames only.  ``flip`` averages
     each prediction with the mirrored prediction of the mirrored input (the
-    3DHP protocol)."""
+    3DHP protocol).  The scores come from float64 sums of the valid frames'
+    P1, P2 and threshold counts.  In a data-parallel group each batch is
+    edge-padded to a multiple of the ranks (eval mode treats every row
+    alone), each rank scores its rows and the sums are all-reduced; the
+    CLIs' batch sizes divide by the ranks (``mesh.check_request``), so this
+    is the JAX package's rule of sharding the batch when it divides
+    (dhaug_tpu/train/posenet.py:276)."""
     model.eval()
-    p1s, p2s, errs = [], [], []
+    dp = mesh.current()
+    sums, thresholds = None, None
     for batch in batches:
-        p1, p2, err = _per_sample_metrics(_forward(model, batch[0], flip), batch[1])
-        valid = batch[2] if len(batch) > 2 else None
-        p1s.append(p1[:valid])
-        p2s.append(p2[:valid])
-        errs.append(err[:valid])
-    if not p1s:
+        x, y = batch[0], batch[1]
+        rows = x.shape[0]
+        pad = -rows % dp.world
+        if pad:
+            x = torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])])
+            y = torch.cat([y, y[-1:].expand((pad,) + y.shape[1:])])
+        p1, p2, err = _per_sample_metrics(_forward(model, dp.rows(x), flip), dp.rows(y))
+        frames_a_row = p1.shape[0] // (x.shape[0] // dp.world)
+        valid = batch[2] if len(batch) > 2 else rows * frames_a_row
+        first = dp.rank * p1.shape[0]          # this rank's first frame in the batch
+        keep = torch.arange(first, first + p1.shape[0], device=p1.device) < valid
+        if sums is None:
+            sums = torch.zeros(3 + len(_AUC_THRESHOLDS), dtype=torch.float64, device=p1.device)
+            thresholds = torch.as_tensor(_AUC_THRESHOLDS, device=p1.device)
+        err = err[keep].double()
+        sums += torch.cat([torch.stack([p1[keep].double().sum(), p2[keep].double().sum(),
+                                        keep.sum().double()]),
+                           (err[..., None] < thresholds).sum((0, 1)).double()])
+    if sums is None:
         return dict(_NAN_SCORES)
-    return _aggregate(*(torch.cat(x).cpu().numpy() for x in (p1s, p2s, errs)))
+    n, frames = dp.all_reduce_(sums)[2], sums[3:] / (sums[2] * 16) * 100.0
+    p1, p2, pck, auc = (float(v) for v in (sums[0] / n, sums[1] / n, frames[-1], frames.mean()))
+    return {"p1": p1, "p2": p2, "pck": pck, "auc": auc}
 
 
 def evaluate(model, poses_2d, poses_3d, batch_size: int,

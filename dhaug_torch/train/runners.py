@@ -1,6 +1,8 @@
 """Runner plumbing shared by the entry points (port of the parts of
 ``dhaug_tpu/train/runners.py`` the runners use, and the refusal of the
-flags not ported yet: the orbax format and multi-device)."""
+flags not ported yet: the orbax format and tensor parallelism).  Under data
+parallelism only rank 0 makes the run directory and writes the logs; the
+other ranks get its path and loggers that write nothing."""
 from __future__ import annotations
 
 import datetime
@@ -8,6 +10,7 @@ import os
 from typing import Tuple
 
 from dhaug_torch.models.factory import SINGLE_FRAME_NAMES
+from dhaug_torch.parallel import mesh
 from dhaug_torch.utils.log import Logger, Summary
 
 LOG_COLUMNS = ["epoch", "lr", "error_h36m_p1", "error_h36m_p2",
@@ -16,12 +19,13 @@ LOG_COLUMNS = ["epoch", "lr", "error_h36m_p1", "error_h36m_p2",
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError naming every flag of ``args`` whose code is
-    not ported yet: the orbax format and multi-device."""
+    not ported yet: the orbax format (ROADMAP A16c) and tensor parallelism
+    (A16b)."""
     unported = []
     if args.ckpt_format != "pickle":
-        unported.append(f"--ckpt_format {args.ckpt_format}")
-    if args.data_parallel_devices > 1 or args.model_parallel_devices > 1:
-        unported.append("--data_parallel_devices/--model_parallel_devices above 1")
+        unported.append(f"--ckpt_format {args.ckpt_format} (ROADMAP A16c)")
+    if args.model_parallel_devices > 1:
+        unported.append("--model_parallel_devices above 1 (ROADMAP A16b, tensor parallelism)")
     if unported:
         raise NotImplementedError(
             "not ported yet to dhaug_torch: " + ", ".join(unported)
@@ -39,17 +43,22 @@ def check_posenet_mode(args) -> None:
 
 def make_run_dir(args) -> str:
     """checkpoint/<posenet>/<keypoints>/<timestamp>_<note>/ (the reference's
-    layout, run_Fk_GAN.py:79-83)."""
-    run_dir = os.path.join(args.checkpoint, args.posenet_name, args.keypoints,
-                           datetime.datetime.now().isoformat() + "_" + args.note)
-    os.makedirs(os.path.join(run_dir, "tmp"), exist_ok=True)
-    return run_dir
+    layout, run_Fk_GAN.py:79-83), made by rank 0; every rank gets its path."""
+    dp = mesh.current()
+    run_dir = None
+    if dp.is_main:
+        run_dir = os.path.join(args.checkpoint, args.posenet_name, args.keypoints,
+                               datetime.datetime.now().isoformat() + "_" + args.note)
+        os.makedirs(os.path.join(run_dir, "tmp"), exist_ok=True)
+    return dp.broadcast_object(run_dir)
 
 
 def make_logger(run_dir: str, args) -> Tuple[Logger, Summary]:
-    logger = Logger(os.path.join(run_dir, "log.txt"), args)
+    """``log.txt`` and ``metrics.jsonl`` in ``run_dir``, on rank 0 only."""
+    main = mesh.current().is_main
+    logger = Logger(os.path.join(run_dir, "log.txt") if main else None, args)
     logger.set_names(LOG_COLUMNS)
-    summary = Summary(run_dir)
+    summary = Summary(run_dir if main else None)
     summary.create_summary()
     return logger, summary
 

@@ -25,6 +25,12 @@ training sequence, the clip loader's seed, the fake pass's permutation and
 the real pass's.  With ``--record_all_picture`` each GAN epoch dumps a fake
 clip (3D and 2D) and a real re-skinned clip under ``<run dir>/tmp/``, and
 the run ends with the GAN's epoch-mean curves.
+
+Under data parallelism (``parallel/mesh.py``) each rank trains on its rows
+of every batch of clips and windows, the windowed evaluation flavour
+shards its batches over the ranks, the whole-sequence one runs whole on
+every rank (dhaug_tpu/train/video_runner.py:262), and rank 0 writes the
+checkpoints, snapshots and pictures.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from dhaug_torch.data.loaders import fetch
 from dhaug_torch.gan.single_frame import reskin_rows
 from dhaug_torch.gan.video import build_video_gan, run_video_gan_epoch
 from dhaug_torch.models.factory import make_posenet, receptive_field
+from dhaug_torch.parallel import mesh
 from dhaug_torch.train.data_prep import prepare_data
 from dhaug_torch.train.posenet import (device_windows, evaluate_batches, evaluate_sequences,
                                        train_video_clips, train_video_windows)
@@ -152,15 +159,19 @@ def video_eval_batches(loader, batch_size: int, device, bucket: int = 128):
 
 
 def evaluate_video(eval_net, loader, batch_size: int, device, flip: bool = False) -> dict:
-    """Whole sequences sequence-weighted, windows frame-weighted."""
-    agg = evaluate_sequences if isinstance(loader, UnchunkedSequences) else evaluate_batches
-    return agg(eval_net, video_eval_batches(loader, batch_size, device), flip)
+    """Whole sequences sequence-weighted, windows frame-weighted (sharded
+    over the ranks of a data-parallel group)."""
+    batches = video_eval_batches(loader, batch_size, device)
+    if isinstance(loader, UnchunkedSequences):
+        return evaluate_sequences(eval_net, batches, flip)
+    return evaluate_batches(eval_net, batches, flip)
 
 
 def video_mode_main(args, train_subjects: List[str], device) -> dict:
     """Run the training; returns what ``run_fk_gan.main`` returns, with the
     best scores and the numpy stream besides."""
     method = args.data_enhancement_method
+    dp = mesh.current()
     np_rng = np.random.default_rng(args.random_seed)
     torch.manual_seed(args.random_seed)  # weight initialisation
     generator = torch.Generator(device=device)
@@ -180,6 +191,8 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
     max_norm = 1.0 if args.max_norm else 1e9
 
     gan = build_video_gan(args, train_subjects, rf, device) if method == "GAN" else None
+    dp.broadcast_modules(posenet, *([gan.gen, gan.d3d, gan.d2d, gan.md3d, gan.md2d]
+                                    if gan is not None else []))
 
     run_dir = make_run_dir(args)
     print(f"==> Making checkpoint dir: {run_dir}")
@@ -224,6 +237,7 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
         trained_epochs = int(saved["trained_epochs"])
         dhpp1_best = saved["dhpp1_best"]
         s911p1_best = saved["s911p1_best"]
+        dp.broadcast_modules(*(net for net, _ in nets.values()))
         print(f"==> Resumed from {resume_path} at epoch {start_epoch}")
 
     def full_state_ckpt(now_epoch: int) -> dict:
@@ -243,7 +257,7 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
             use_motion = summary.epoch >= args.single_dis_warmup_epoch
             fakes = run_video_gan_epoch(gan, gan_loader, args.batch_size, generator, summary,
                                         use_motion, summary.writer)
-        if args.record_all_picture and fakes is not None:
+        if args.record_all_picture and fakes is not None and dp.is_main:
             # the reference dumps real clips beside the fake ones
             # (video_GAN_fun.py:590-600)
             f3d, f2d, _ = fakes
@@ -306,7 +320,7 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
               f"| 3DHP P1 {dhp['p1']:.2f} | {epoch_seconds[-1]:.2f} s")
         summary.epoch += 1
 
-    if args.record_all_picture and summary.epoch_scalar_history:
+    if args.record_all_picture and summary.epoch_scalar_history and dp.is_main:
         plot_scalar_curves(summary.epoch_scalar_history,
                            os.path.join(run_dir, "wasserstein_curves.png"),
                            title="GAN critic curves (epoch means)")

@@ -17,6 +17,7 @@ trees go through ``models/convert.load_posenet``.  The JAX package's
 full-state snapshots (flax ``NetState`` objects inside) and ``orbax``
 directories are refused with a message that says why.  Not ported:
 ``fetch_tree``, which served the TPU runtime; ``.cpu()`` takes its place.
+Under data parallelism only rank 0 writes; every rank reads.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from dhaug_torch.models.convert import load_posenet
+from dhaug_torch.parallel import mesh
 from dhaug_torch.utils.transplant import (is_torch_checkpoint, load_posenet_state_dict,
                                           load_torch_checkpoint)
 
@@ -44,12 +46,14 @@ def _to_cpu(obj: Any) -> Any:
 
 def save_ckpt(state: dict, ckpt_dir: str, suffix: str | None = None) -> str:
     """Save ``state`` as ``<ckpt_dir>/ckpt_<suffix>.ckpt`` (``suffix``
-    defaults to ``epoch_<epoch>``); returns the path."""
+    defaults to ``epoch_<epoch>``); returns the path.  Only rank 0 of a
+    data-parallel group writes."""
     if suffix is None:
         suffix = "epoch_{:04d}".format(state.get("epoch", 0))
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{suffix}.ckpt")
-    torch.save(_to_cpu(state), path)
+    if mesh.current().is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save(_to_cpu(state), path)
     return path
 
 
@@ -115,7 +119,8 @@ def save_snapshot(state: dict, ckpt_dir: str, suffix: str, fmt: str = "pickle") 
     ``ckpt_<suffix>.ckpt`` file; 'orbax' is not ported."""
     if fmt == "orbax":
         raise NotImplementedError("--ckpt_format orbax is not ported yet to dhaug_torch "
-                                  "(the JAX package's utils/checkpoint.py has it)")
+                                  "(ROADMAP A16c; the JAX package's utils/checkpoint.py "
+                                  "has it)")
     if fmt != "pickle":
         raise ValueError(f"unknown --ckpt_format {fmt!r} (pickle|orbax)")
     return save_ckpt(state, ckpt_dir, suffix=suffix)
@@ -126,7 +131,7 @@ def load_snapshot(path: str) -> dict:
     orbax snapshot and a raw pickle the JAX package's: neither resumes."""
     if os.path.isdir(path):
         raise NotImplementedError(f"{path} is an orbax snapshot directory; reading orbax "
-                                  "snapshots is not ported yet to dhaug_torch")
+                                  "snapshots is not ported yet to dhaug_torch (ROADMAP A16c)")
     if is_raw_pickle(path):
         raise NotImplementedError(
             f"{path} is a JAX package checkpoint (a raw pickle): the port resumes only its "

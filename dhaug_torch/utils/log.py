@@ -5,7 +5,9 @@ Port of ``dhaug_tpu/utils/log.py``'s ``Logger``, ``MetricsWriter`` and
 header row, then one row per logged epoch.  Scalars go to
 ``metrics.jsonl`` under the reference's TensorBoard tags; this port writes
 no TensorBoard event files (importing ``torch.utils.tensorboard`` can pull in
-all of TensorFlow, which costs more than a short run).
+all of TensorFlow, which costs more than a short run).  A ``Logger`` or
+``MetricsWriter`` given no path writes nothing: the ranks of a data-parallel
+run other than rank 0 keep the counters but write no file.
 """
 from __future__ import annotations
 
@@ -16,53 +18,61 @@ from typing import Optional
 
 
 class Logger:
-    """Tab-separated metric rows with named columns."""
+    """Tab-separated metric rows with named columns (none without ``fpath``)."""
 
-    def __init__(self, fpath: str, args=None):
-        self.file = open(fpath, "w")
+    def __init__(self, fpath: Optional[str], args=None):
+        self.file = open(fpath, "w") if fpath is not None else None
         self.names = []
         if args is not None:
             self.record_args(str(args))
 
+    def _write(self, line: str):
+        if self.file is not None:
+            self.file.write(line + "\n")
+            self.file.flush()
+
     def record_args(self, text: str):
-        self.file.write(text + "\n")
-        self.file.flush()
+        self._write(text)
 
     def set_names(self, names):
         self.names = list(names)
-        self.file.write("\t".join(self.names) + "\n")
-        self.file.flush()
+        self._write("\t".join(self.names))
 
     def append(self, numbers):
         if len(self.names) != len(numbers):
             raise ValueError("numbers do not match names")
         row = [f"{num}" if isinstance(num, int) else f"{float(num):.6f}" for num in numbers]
-        self.file.write("\t".join(row) + "\n")
-        self.file.flush()
+        self._write("\t".join(row))
 
     def close(self):
-        self.file.close()
+        if self.file is not None:
+            self.file.close()
 
 
 class MetricsWriter:
-    """Scalar stream, one JSON object a line."""
+    """Scalar stream, one JSON object a line (none without a directory)."""
 
-    def __init__(self, directory: str):
-        os.makedirs(directory, exist_ok=True)
-        self._jsonl = open(os.path.join(directory, "metrics.jsonl"), "a")
+    def __init__(self, directory: Optional[str]):
+        self._jsonl = None
+        if directory is not None:
+            os.makedirs(directory, exist_ok=True)
+            self._jsonl = open(os.path.join(directory, "metrics.jsonl"), "a")
 
     def add_scalar(self, tag: str, value, step: int):
-        self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": int(step),
-                                      "ts": time.time()}) + "\n")
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": int(step),
+                                          "ts": time.time()}) + "\n")
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 class Summary:
-    """Iteration/epoch counters shared across the training phases."""
+    """Iteration/epoch counters shared across the training phases; its
+    writer writes nothing without a ``directory``."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: Optional[str]):
         self.directory = directory
         self.epoch = 0
         self.train_iter_num = 0

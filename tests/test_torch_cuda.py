@@ -43,8 +43,10 @@ def _misaligned(t):
 # the synthesis batch, the traditional augmenter's 10000 (a last tile of 16);
 # video mode's clip batches B x F: 512 x 9 (the README's --architecture 3,3
 # --batch_size 512), 512 x 27 (the default 3,3,3) and 8 x 9 (a ragged last
-# tile of 8); "1027m": inputs 4 bytes past a 16-byte boundary
-FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m", 72, 4608, 13824]
+# tile of 8); "1027m": inputs 4 bytes past a 16-byte boundary; and a rank's
+# rows of two data-parallel ranks: 512 (the training batch 1024), 2304 (the
+# video clip batch 4608) and 4096 (the synthesis batch 8192)
+FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m", 72, 4608, 13824, 512, 2304, 4096]
 
 
 def _fk_case(case, seed_offset, device):
@@ -167,13 +169,14 @@ def _trunk(dense, device, seed=0):
 
 
 @pytest.mark.parametrize("dense,B", [(1000, 8192), (1000, 1000), (1000, 1), (40, 1000),
-                                     (64, 64), (256, 333)])
+                                     (64, 64), (256, 333), (1000, 4096)])
 def test_trunk_kernel_matches_plain(device, dense, B):
     """B3 against the plain bf16 trunk, to the bf16-level rule of
     trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR: the synthesis width at full,
     ragged and single-row batches, one tile (D = 64, B = 64: a swizzle or
-    descriptor mismatch shows here first), and ragged rows over several
-    tiles (D = 256, B = 333)."""
+    descriptor mismatch shows here first), ragged rows over several tiles
+    (D = 256, B = 333), and a rank's rows of a 2-process synthesis
+    (B = 4096)."""
     ops = _trunk(dense, device)
     noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
                             dtype=torch.float32, device=device)
@@ -273,3 +276,47 @@ def test_synthetic_fixture_written_on_the_card_equals_the_committed_one(device, 
            "test_3dhp.npz/pose2d": 1e-5, "hm36s15678_bl_templates.npy/lengths": 1e-6}
     assert set(diffs) == set(tol)
     assert all(diffs[k] <= tol[k] for k in tol), diffs
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_rank(device):
+    """One critic phase (B1 on each rank's rows) and one generator update
+    (B1 and B2) with SGD on two gloo ranks sharing cuda:0, against one rank,
+    with the bounds of tests/test_torch_parallel.py: weights within 1e-6
+    (critics) and 1e-5 (generator), fakes and scalars within 1e-6."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_dp_worker as worker
+    from dhaug_torch.gan.wgan import camera_bank
+    from dhaug_torch.parallel import mesh
+
+    B, W, subjects = 64, 64, ["S1", "S5"]
+    rng = np.random.default_rng(3)
+    real = fk_plain.fk_world_pose_16(*(torch.as_tensor(a, dtype=torch.float32) for a in (
+        rng.uniform(-30, 30, (B, 33)), np.asarray(fk_plain.CANONICAL_BONE_LEN) *
+        rng.uniform(0.9, 1.1, (B, 15)), rng.uniform(-30, 30, (B, 3)),
+        np.broadcast_to([0.0, 0.0, 5.0], (B, 3))))).numpy()
+    quats, trans, intrs = (np.asarray(x) for x in camera_bank(subjects))
+    cam16 = np.tile(np.concatenate([intrs[2], quats[2], trans[2]]), (B, 1)).astype(np.float32)
+    batch = (real, cam16, (rng.normal(size=(B, 16, 2)) * 0.3).astype(np.float32))
+    f32 = lambda a: np.asarray(a, np.float32)
+    draws = dict(noise=f32(rng.normal(size=(B, 128))),
+                 scaler8=f32(rng.integers(-200, 200, (B, 8)) / 1000.0), cam_idx=5,
+                 alphas=[f32(rng.uniform(size=(B, 1))) for _ in range(4)])
+    gen_inputs = dict(bone_len=f32(rng.uniform(0.15, 0.6, (B, 15))), cam_idx=3,
+                      noise=f32(rng.normal(size=(B, 128))),
+                      scaler8=f32(rng.integers(-200, 200, (B, 8)) / 1000.0))
+    args = (W, subjects, None, 1e-6, None, 1e-2, batch, draws, gen_inputs, "cuda:0")
+    one = worker.gan_step_phases(*args)
+    ranks = mesh.launch("test_torch_dp_worker:gan_step_phases", args, ["cuda:0", "cuda:0"],
+                        "gloo")
+    for r in ranks:
+        # each rank made its fakes with B1 and updated the generator with B1/B2
+        assert r["launches"]["fwd"] >= 2 and r["launches"]["bwd"] == 1
+        for net, tol in (("d3d", 1e-6), ("d2d", 1e-6), ("gen", 1e-5)):
+            for k, v in one[net].items():
+                np.testing.assert_allclose(r[net][k], v, atol=tol, rtol=0, err_msg=k)
+        for k in ("fake3d", "fake2d", "bone_len"):
+            np.testing.assert_allclose(r[k], one[k], atol=1e-6, rtol=0, err_msg=k)
+        for k, v in one["metrics"].items():
+            np.testing.assert_allclose(r["metrics"][k], v, atol=1e-6, rtol=1e-6, err_msg=k)

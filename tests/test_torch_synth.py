@@ -122,13 +122,33 @@ def test_ckpt_loads_the_snapshot_generator_exactly(tmp_path, layout):
 @pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
                                    ["--num_processes", "2"]])
 def test_multi_process_flags_are_refused(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """Multi-process synthesis needs both flags: half of the pair is
+    refused before any work (tests/test_torch_parallel.py runs the pair)."""
+    with pytest.raises(SystemExit, match="needs both --coordinator"):
         synthesize_dataset.main(["--device", "cpu", "--out", str(tmp_path / "s.npz")] + flags)
+    assert not (tmp_path / "s.npz").exists()
 
 
 def test_more_than_one_device_is_refused():
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_sharded_synthesizer(GeneratorConfig(dense_dim=32), n_devices=2)
+    """Over several devices a batch must split into whole shards, one
+    generator each; outside a group the shards run in turn and their rows
+    come back in shard order."""
+    cfg = GeneratorConfig(dense_dim=32)
+    synthesize = make_sharded_synthesizer(cfg, n_devices=2)
+    torch.manual_seed(0)
+    ops = trunk_cuda.trunk_weights(FkGeneratorNet(cfg))
+    gens = [torch.Generator().manual_seed(s) for s in (1, 2)]
+    with pytest.raises(ValueError, match="divisible by 2"):
+        synthesize(ops, _canonical().expand(3, 15).contiguous(), gens)
+    with pytest.raises(ValueError, match="2 generators"):
+        synthesize(ops, _canonical().expand(4, 15).contiguous(), gens[:1])
+    with pytest.raises(ValueError, match="at least 1"):
+        make_sharded_synthesizer(cfg, n_devices=0)
+    one = make_sharded_synthesizer(cfg)
+    bl = _canonical().expand(4, 15).contiguous()
+    got = synthesize(ops, bl, [torch.Generator().manual_seed(s) for s in (1, 2)])
+    want = torch.cat([one(ops, bl[:2], torch.Generator().manual_seed(s)) for s in (1, 2)])
+    assert torch.equal(got, want)
 
 
 def test_device_cuda_without_a_card_raises(tmp_path):
