@@ -67,7 +67,13 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               there must equal the committed one, B1/B2 launch exactly as
               in the main phase, and its GAN iterations are profiled; the
               video command with ``--bf16_trunk true`` for 2 epochs (B1 21,
-              B2 3), its iterations profiled;
+              B2 3), its iterations profiled; the main command with
+              ``--ckpt_format orbax``, which must train the main phase's
+              weights bit for bit and write a snapshot directory holding
+              what the main phase's pickle holds, resumed from it for the
+              last epoch onto the same weights; a 2-epoch mlp
+              ``run_baseline`` with it and ``run_evaluate`` on its
+              ``ckpt_best/`` (its best H36M P1 within 0.05 mm);
 12. data_parallel -- ``--data_parallel_devices`` and multi-process
               synthesis on the one card: (a) the main command with
               ``--data_parallel_devices 2`` must stop before any launch;
@@ -94,13 +100,29 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               must equal the two shards' streams run in this process.
               (c)-(e) sample the card's busy share with nvidia-smi; two
               ranks on one card compete for it, so their times are no
-              scaling number.
+              scaling number;
+13. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
+              the main command with ``--model_parallel_devices 2`` must
+              stop before any launch; (b) the full-width SGD witness of
+              data_parallel on a model group of two gloo ranks sharing
+              cuda:0 (every wide layer's output columns split in two)
+              against one rank computing each wide layer as two column
+              blocks, each net's summed SGD steps within 2e-3 of its
+              largest, beside a control that must fail that bound (the
+              gather's backward summing the blocks instead of slicing);
+              (c) the main command on the model group against the main
+              phase's run and (d) the video command cut to 2 epochs of
+              half the clips (motion critics from epoch 0) against the
+              same command on one rank: the first iteration's
+              Wasserstein estimates within 1e-3 of the scores, each
+              rank's B1/B2 launches equal to the one-rank run's; epoch
+              seconds, collective share, weight gaps printed.
 
 Each run of phases 7-10 (but the poseformer's) is then run once more under
 torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
-after; a rank or process of phase 12 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
+after; a rank or process of phases 12-13 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
 ``nvidia-smi`` name/power-limit line, one ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -979,7 +1001,7 @@ def preflight_refuses_mm_data(fk_cuda, trunk_cuda) -> None:
           "mm_refusal": refusal, "mm_launches": launches})
 
 
-def phase_cli_extras(fk_cuda, trunk_cuda, device):
+def phase_cli_extras(fk_cuda, trunk_cuda, device, main_ref: dict):
     """(d) preflight on the card's runs; (a) the README's single-frame
     command with --synthetic_data into a fresh directory (the fixture the
     port writes there must equal the committed one) and --bf16_trunk, 2
@@ -1049,6 +1071,87 @@ def phase_cli_extras(fk_cuda, trunk_cuda, device):
         if not all(math.isfinite(x) for x in v):
             raise AssertionError(f"bf16 video: GAN scalar {k} not finite: {v}")
     profile_video_iterations(result["gan"], device, label="video_bf16_trunk")
+    launches.update(orbax_checks(fk_cuda, trunk_cuda, main_ref))
+    return launches
+
+
+def same_tree(a, b) -> bool:
+    """Equal trees: the same containers and keys, tensors equal in dtype
+    and bits, every other leaf of the same type and value."""
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(same_tree(a[k], b[k])
+                                                                 for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def orbax_checks(fk_cuda, trunk_cuda, main_ref: dict) -> dict:
+    """``--ckpt_format orbax``: the main command with it must train the
+    main phase's weights bit for bit and write, after epoch 1, a
+    ``ckpt_resume_latest/`` directory holding what the main phase's pickle
+    snapshot holds; resumed from the directory for the one epoch left, it
+    must end on the main phase's weights bit for bit.  Then 2 epochs of
+    ``run_baseline`` (mlp) with it, and ``run_evaluate`` on its
+    ``ckpt_best/`` directory within 0.05 mm of the run's best H36M P1."""
+    import torch
+    from dhaug_torch import run_baseline, run_evaluate, run_fk_gan
+    from dhaug_torch.utils.checkpoint import load_snapshot
+
+    launches = {}
+    differ = lambda got: [f"{name}.{k}" for name, ref in main_ref["nets"].items()
+                          for kind in ("params", "buffers") for k, v in ref[kind].items()
+                          if not torch.equal(got[name][kind][k], v)]
+    args = with_flags(MAIN_ARGS, ckpt_format="orbax", data_root=REPO,
+                      checkpoint=REPO / "_runs" / "chip_smoke_orbax")
+    reset_counts(fk_cuda, trunk_cuda)
+    t0 = time.perf_counter()
+    result = run_fk_gan.main(args)
+    seconds = time.perf_counter() - t0
+    launches["cli_extras_orbax"] = read_counts(fk_cuda, trunk_cuda)
+    snapshot = Path(result["run_dir"]) / "ckpt_resume_latest"
+    trained = differ(net_weights(result))
+    same = same_tree(load_snapshot(str(snapshot)),
+                     load_snapshot(str(main_ref["run_dir"] / "ckpt_resume_latest.ckpt")))
+    reset_counts(fk_cuda, trunk_cuda)
+    resumed = run_fk_gan.main(args + ["--resume", str(snapshot), "--checkpoint",
+                                      str(REPO / "_runs" / "chip_smoke_orbax_resumed")])
+    launches["cli_extras_orbax_resumed"] = read_counts(fk_cuda, trunk_cuda)
+    after_resume = differ(net_weights(resumed))
+
+    base = ["--posenet_name", "mlp", "--epochs", "2", "--data_root", str(REPO),
+            "--ckpt_format", "orbax"]
+    reset_counts(fk_cuda, trunk_cuda)
+    baseline = run_baseline.main(base + ["--checkpoint",
+                                         str(REPO / "_runs" / "chip_smoke_orbax_baseline")])
+    best_dir = Path(baseline["run_dir"]) / "ckpt_best"
+    scored = run_evaluate.main(["--posenet_name", "mlp", "--data_root", str(REPO),
+                                "--evaluate", str(best_dir)])
+    launches["cli_extras_orbax_baseline"] = read_counts(fk_cuda, trunk_cuda)
+    p1_gap = abs(scored["h36m"]["p1"] - baseline["best_h36m"])
+    emit({"phase": "cli_extras", "path": "orbax", "seconds": seconds,
+          "epoch_seconds": result["epoch_seconds"],
+          "snapshot_files": sorted(p.name for p in snapshot.iterdir()),
+          "arrays": len(list((snapshot / "arrays").iterdir())),
+          "tensors_differing_from_main": trained, "snapshot_equals_main_pickle": same,
+          "resumed_epoch_seconds": resumed["epoch_seconds"],
+          "tensors_differing_after_resume": after_resume,
+          "baseline_best_h36m_p1": baseline["best_h36m"],
+          "evaluate_h36m_p1": scored["h36m"]["p1"], "p1_gap_mm": p1_gap,
+          "launches": {k: launches[k] for k in launches}})
+    if trained or not same or after_resume or len(resumed["epoch_seconds"]) != 1:
+        raise AssertionError(f"orbax: {len(trained)} tensors differ from the main run, "
+                             f"snapshot equal {same}, {len(after_resume)} differ after resume "
+                             f"({after_resume[:5]})")
+    if launches["cli_extras_orbax"] != main_ref["launches"]:
+        raise AssertionError(f"orbax: launches {launches['cli_extras_orbax']}, main "
+                             f"{main_ref['launches']}")
+    if not p1_gap <= 0.05:
+        raise AssertionError(f"orbax: run_evaluate on {best_dir} gives H36M P1 "
+                             f"{scored['h36m']['p1']}, the run's best {baseline['best_h36m']}")
     return launches
 
 
@@ -1108,7 +1211,7 @@ DP_SGD_LR = {"gen": 1e-2, "d3d": 1e-6, "d2d": 1e-6,                     # tests/
              "v_md2d": 1e-6, "posenet": 1e-3}
 
 
-def dp_witness_inputs(seed: int = 0) -> dict:
+def dp_witness_inputs(seed: int = 0, B: int = 1024, Bv: int = 512) -> dict:
     """The witness's global inputs and draws, numpy, from ``seed``: real
     poses from the plain FK at random angles 5 m before the camera, camera
     records of DP_SUBJECTS' bank, 2D targets, noise, scalers, camera
@@ -1139,7 +1242,7 @@ def dp_witness_inputs(seed: int = 0) -> dict:
                     cam_idx=int(rng.integers(0, len(bank))),
                     alphas=[f32(rng.uniform(size=(n, 1))) for n in rows])
 
-    B, Bv, F = 1024, 512, 9
+    F = 9
     return {"single": dict(real=poses(B), cam16=f32(bank[rng.integers(0, len(bank), B)]),
                            tgt2d=f32(rng.normal(size=(B, 16, 2)) * 0.3),
                            critics=draws(B, 1), gen=draws(B, 1)),
@@ -1176,17 +1279,33 @@ def dp_witness(inputs: dict, control: str = "", width: int = DP_WIDTH,
     scalars (the ranks' mean), the MLP's batch-norm statistics and loss,
     and this process's B1/B2/B3 launches.  ``control`` 'rows' takes the
     first half of every global input (one rank's rows, alone); 'halves'
-    runs every GAN net's forward in two halves of the batch.  A rank runs
-    on its own device; this process on ``device``."""
+    runs every GAN net's forward in two halves of the batch.  On a model
+    axis of more than one rank (``mesh.launch(model_parallel=M)``) every
+    net's wide layers are column-parallel (``parallel/tensor.py``) and
+    the updates come back in the single-device layout; ``control``
+    'blocks' computes each such layer here as M column blocks
+    concatenated (the products a rank gives cuBLAS), and 'gather_sums'
+    makes the ranks' gather backward sum the blocks of its cotangent
+    instead of taking this rank's.  A rank runs on its own device; this
+    process on ``device``."""
     import torch
     from dhaug_torch.gan import video, wgan
     from dhaug_torch.models import discriminators, generator
     from dhaug_torch.models.factory import make_posenet
-    from dhaug_torch.parallel import mesh
+    from dhaug_torch.parallel import mesh, tensor
     from dhaug_torch.train import posenet as train
 
     dp = mesh.current()
     device = dp.device if dp.device is not None else torch.device(device)
+    if control == "gather_sums":
+        tensor._Gather.backward = staticmethod(
+            lambda ctx, g: (sum(g.chunk(mesh.current().model.world, ctx.dim)), None))
+
+    def place(net):
+        tensor.shard_module_tp(net)
+        if control == "blocks":
+            column_blocks(net, TP_DEVICES_M)
+        return net
     steps_of = {}          # lr x the gradient of every SGD step, summed
 
     def keep_step(opt, args, kwargs):
@@ -1201,7 +1320,7 @@ def dp_witness(inputs: dict, control: str = "", width: int = DP_WIDTH,
 
     def build(prefix, seed, make):
         torch.manual_seed(seed)
-        made = [n.to(device) for n in make()]
+        made = [place(n.to(device)) for n in make()]
         dp.broadcast_modules(*made)
         names = ["gen", "d3d", "d2d", "md3d", "md2d"][:len(made)]
         nets.update({prefix + k: n for k, n in zip(names, made)})
@@ -1222,7 +1341,7 @@ def dp_witness(inputs: dict, control: str = "", width: int = DP_WIDTH,
                                            discriminators.MotionFk3DDiscriminator(9, width),
                                            discriminators.MotionFk2DDiscriminator(9, width)])
     torch.manual_seed(2)
-    mlp = make_posenet("mlp", stages=4, dropout=0.25).to(device)
+    mlp = place(make_posenet("mlp", stages=4, dropout=0.25).to(device))
     dp.broadcast_modules(mlp)
     nets["posenet"] = mlp
     before = {name: {k: p.detach().clone() for k, p in n.named_parameters()}
@@ -1248,13 +1367,51 @@ def dp_witness(inputs: dict, control: str = "", width: int = DP_WIDTH,
     opt.register_step_pre_hook(keep_step)
     loss = train.train_step(mlp, opt, dp.rows(on(x["x"])), dp.rows(on(x["y"])), 1.0,
                             torch.Generator(device).manual_seed(3))
-    return {"updates": {name: {k: (p.detach() - before[name][k]).cpu()
-                               for k, p in n.named_parameters()} for name, n in nets.items()},
-            "steps": {name: {k: torch.as_tensor(steps_of.get(id(p), 0.0)).cpu()
-                             for k, p in n.named_parameters()} for name, n in nets.items()},
+    return {"updates": {name: whole(n, {k: p.detach() - before[name][k]
+                                        for k, p in n.named_parameters()})
+                        for name, n in nets.items()},
+            "steps": {name: whole(n, {k: torch.as_tensor(steps_of.get(id(p), 0.0), device=device)
+                                      .expand_as(p) for k, p in n.named_parameters()})
+                      for name, n in nets.items()},
             "metrics": metrics, "loss": float(dp.mean(loss)),
             "bn": {k: v.detach().cpu() for k, v in mlp.named_buffers() if "running" in k},
             "launches": mesh.kernel_launches()}
+
+
+def whole(net, tensors: dict) -> dict:
+    """``tensors`` by parameter name of ``net``, on the CPU, each column
+    block gathered over the model group (``parallel/tensor.py``)."""
+    from dhaug_torch.parallel import mesh
+    from dhaug_torch.parallel.tensor import sharded_parameters
+    blocks = {id(p) for p in sharded_parameters(net)}
+    axis = mesh.current().model
+    return {k: (axis.all_gather(tensors[k].contiguous(), 0) if id(p) in blocks
+                else tensors[k]).cpu() for k, p in net.named_parameters()}
+
+
+def column_blocks(net, m: int, min_width: int = 512) -> None:
+    """Swap, in place, each ``nn.Linear`` of ``net`` with an output width
+    of at least ``min_width`` dividing by ``m`` for one that computes its
+    product as ``m`` column blocks concatenated: the products one rank of
+    a model axis of ``m`` gives cuBLAS, on the same parameters."""
+    import torch
+    from torch import nn
+    from torch.nn import functional as F
+
+    class Blocks(nn.Module):
+        def __init__(self, layer):
+            super().__init__()
+            self.weight, self.bias = layer.weight, layer.bias
+
+        def forward(self, x, dtype=None):
+            return torch.cat([F.linear(x, w, b) for w, b in
+                              zip(self.weight.chunk(m), self.bias.chunk(m))], -1)
+
+    for parent in list(net.modules()):
+        for name, child in list(parent.named_children()):
+            if type(child) is nn.Linear and child.out_features >= min_width \
+                    and child.out_features % m == 0:
+                setattr(parent, name, Blocks(child))
 
 
 def update_gaps(got: dict, want: dict) -> dict:
@@ -1273,7 +1430,7 @@ def update_gaps(got: dict, want: dict) -> dict:
 
 def metric_gaps(got: dict, want: dict) -> dict:
     """Each critic phase scalar's gap over the larger of the value, the
-    critic's mean scores and 1 (as dp_run scales the estimates)."""
+    critic's mean scores and 1 (as grid_run scales the estimates)."""
     out = {}
     for label, ref in want["metrics"].items():
         for k, v in ref.items():
@@ -1388,9 +1545,44 @@ class BusySampler:
         return False
 
 
-def dp_run(label: str, args: list, reference: dict, tags) -> dict:
+def rank_run(module: str, argv: list) -> dict:
+    """``mesh.run_main(module, argv)`` on a rank of ``mesh.launch``, with
+    the trained nets' weights (``net_weights``: this rank's column blocks)
+    beside, from every rank."""
+    import importlib
+    from dhaug_torch.parallel import mesh
+    mod, kept = importlib.import_module(module), {}
+    main = mod.main
+
+    def keep(argv):
+        result = main(argv)
+        kept["weights"] = net_weights(result)
+        return result
+
+    mod.main = keep
+    out = mesh.run_main(module, argv)
+    out["weights"] = kept["weights"]
+    return out
+
+
+def joined_weights(ranks: list, reference: dict) -> dict:
+    """The ranks' trained weights in the single-device layout of
+    ``reference``: a tensor whose shape is not the reference's is a column
+    block, and the model group's blocks are concatenated."""
+    import torch
+
+    def join(name, kind, k):
+        parts = [r[name][kind][k] for r in ranks]
+        return parts[0] if parts[0].shape == reference[name][kind][k].shape else torch.cat(parts)
+    return {name: {kind: {k: join(name, kind, k) for k in ref[kind]} for kind in ref}
+            for name, ref in reference.items()}
+
+
+def grid_run(phase: str, label: str, args: list, reference: dict, tags,
+             model_parallel: int = 1) -> dict:
     """``args`` on two gloo ranks sharing cuda:0 through the library
-    launcher, the card's busy share sampled meanwhile (BusySampler),
+    launcher (two data ranks, or with ``model_parallel`` 2 one model group
+    of two), the card's busy share sampled meanwhile (BusySampler),
     against the one-rank ``reference`` run of the same command: each rank's
     B1/B2 launches and the first iteration's Wasserstein estimates ``tags``
     are held; the later iterations' gaps, the trained weights' gaps and the
@@ -1398,14 +1590,23 @@ def dp_run(label: str, args: list, reference: dict, tags) -> dict:
     from dhaug_torch.parallel import mesh
     t0, started = time.perf_counter(), time.time()
     with BusySampler() as sampler:
-        result = mesh.launch_main("dhaug_torch.run_fk_gan", args, DP_DEVICES, "gloo")
+        if model_parallel == 1:
+            result = mesh.launch_main("dhaug_torch.run_fk_gan", args, DP_DEVICES, "gloo")
+        else:
+            every = mesh.launch("chip_smoke:rank_run", ("dhaug_torch.run_fk_gan", args),
+                                DP_DEVICES, "gloo", model_parallel=model_parallel)
+            result = every[0]
+            result["rank_launches"] = [r.pop("launches") for r in every]
+            result["ranks"] = [r.pop("rank") for r in every]
     wall = time.perf_counter() - t0
     ranks = result["ranks"]
     # the launcher's own seconds: starting the ranks until each starts its
     # run, and from the last run's end to its result loaded here
     overhead = {"to_run_s": [r["started_at"] - started for r in ranks],
                 "after_run_s": started + wall - max(r["ended_at"] for r in ranks)}
-    gaps = weight_gaps(net_weights(result), reference["nets"])
+    weights = net_weights(result) if model_parallel == 1 else \
+        joined_weights([r["weights"] for r in every], reference["nets"])
+    gaps = weight_gaps(weights, reference["nets"])
     w_first, w_gaps = {}, {}
     for tag in tags:
         got = iteration_scalars(Path(result["run_dir"]), tag)
@@ -1423,7 +1624,8 @@ def dp_run(label: str, args: list, reference: dict, tags) -> dict:
         if 0 in want:     # the motion critics join later, on updated nets
             w_first[tag] = w_gaps[tag][0]
     p1_gap = abs(result["scores"]["h36m"]["p1"] - reference["scores"]["h36m"]["p1"])
-    emit({"phase": "data_parallel", "path": label, "ranks": len(ranks), "backend": "gloo",
+    emit({"phase": phase, "path": label, "ranks": len(ranks), "backend": "gloo",
+          "model_parallel": model_parallel,
           "launcher_wall_s": wall, "launcher_overhead": overhead,
           "rank_wall_s": [r["wall_s"] for r in ranks],
           "epoch_seconds": result["epoch_seconds"],
@@ -1610,17 +1812,160 @@ def phase_data_parallel(fk_cuda, trunk_cuda, main_ref: dict, video_ref: dict,
     tags = ["train_G_iter_PoseFk/Fk_d3d_Wasserstein_D", "train_G_iter_PoseFk/d2d_Wasserstein_D"]
     args = MAIN_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
                         "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_main")]
-    for r, counts in enumerate(dp_run("main_2_ranks", args, main_ref, tags)):
+    for r, counts in enumerate(grid_run("data_parallel", "main_2_ranks", args, main_ref, tags)):
         launches[f"dp_main_rank{r}"] = counts
     args = VIDEO_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
                          "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_video")]
     tags += ["train_G_iter_PoseFk/motion_Fk_d3d_Wasserstein_D",
              "train_G_iter_PoseFk/motion_d2d_Wasserstein_D"]
-    for r, counts in enumerate(dp_run("video_2_ranks", args, video_ref, tags)):
+    for r, counts in enumerate(grid_run("data_parallel", "video_2_ranks", args, video_ref,
+                                        tags)):
         launches[f"dp_video_rank{r}"] = counts
     for r, counts in enumerate(dp_synthesis(fk_cuda, trunk_cuda, main_ref["run_dir"] /
                                             "ckpt_resume_latest.ckpt", synth_ref)):
         launches[f"dp_synth_process{r}"] = counts
+    return launches
+
+
+# tensor_parallel: a model group of two gloo ranks sharing the one card
+# against one rank.
+#
+# Each GAN net's and the MLP's layers of 512 or more outputs hold half
+# their output rows on each rank (parallel/tensor.py); activations are
+# whole on both.  The SGD witness of data_parallel is run on that model
+# group (one critic phase and generator update of each GAN at full width
+# and the commands' batches, one MLP step), and its reference is one rank
+# that computes each wide layer as two column blocks concatenated
+# (column_blocks): the products a rank gives cuBLAS, whose kernels for
+# other shapes moved the data-parallel witness's plain one-rank gaps.
+# Bounds are the data-parallel witness's: each net's summed SGD steps
+# within DP_UPDATE_TOL of its largest step element, batch-norm statistics
+# 1e-6, critic scalars DP_METRIC_TOL.  The control sums the blocks of the
+# gather's cotangent instead of slicing it (a backward that is wrong only
+# under tensor parallelism), and must exceed the bound on every net.  Then
+# the main and video commands on the model group against the main and
+# video phases' runs, as data_parallel (c) and (d) do.
+TP_DEVICES_M = 2
+
+
+def tp_sgd_witness(fk_cuda, trunk_cuda, width: int = DP_WIDTH, devices=DP_DEVICES,
+                   inputs=None) -> dict:
+    """The full-width SGD witness (see above) on a model group of two
+    ranks on ``devices``; ``width`` and ``inputs`` (``dp_witness_inputs``)
+    are there to rehearse it small."""
+    import torch
+    from dhaug_torch.parallel import mesh
+
+    inputs = dp_witness_inputs() if inputs is None else inputs
+    reset_counts(fk_cuda, trunk_cuda)
+    blocks = dp_witness(inputs, "blocks", width, devices[0])
+    one_launches = read_counts(fk_cuda, trunk_cuda)
+    one = dp_witness(inputs, "", width, devices[0])
+    t0 = time.perf_counter()
+    ranks = mesh.launch("chip_smoke:dp_witness", (inputs, "", width), devices, "gloo",
+                        model_parallel=TP_DEVICES_M)
+    wall = time.perf_counter() - t0
+    wrong = mesh.launch("chip_smoke:dp_witness", (inputs, "gather_sums", width), devices,
+                        "gloo", model_parallel=TP_DEVICES_M)
+    two = update_gaps(ranks[0], blocks)
+    control = update_gaps(wrong[0], blocks)
+    bn_gap = max(float((ranks[0]["bn"][k] - v).abs().max()) for k, v in blocks["bn"].items())
+    m_two = metric_gaps(ranks[0], blocks)
+    same = all(all(torch.equal(ranks[0]["updates"][n][k], ranks[1]["updates"][n][k])
+                   for k in ranks[0]["updates"][n]) for n in ranks[0]["updates"])
+    emit({"phase": "tensor_parallel", "path": "sgd_witness", "ranks": len(ranks),
+          "model_parallel": TP_DEVICES_M, "launcher_wall_s": wall, "update_gaps": two,
+          "control_gather_backward_summed": control, "update_tol": DP_UPDATE_TOL,
+          "bn_stat_gap": bn_gap, "loss_gap": abs(ranks[0]["loss"] - blocks["loss"]),
+          "metric_gaps": m_two, "metric_tol": DP_METRIC_TOL,
+          "plain_one_rank": {"update_gaps_model_group": update_gaps(ranks[0], one),
+                             "update_gaps_blocks": update_gaps(blocks, one),
+                             "metric_gaps_model_group": metric_gaps(ranks[0], one)},
+          "ranks_identical": same,
+          "rank_launches": [r["launches"] for r in ranks], "one_rank_launches": one_launches})
+    bad = {f"{n}.of_largest": g["of_largest"] for n, g in two.items()
+           if not g["of_largest"] <= DP_UPDATE_TOL}
+    bad.update({k: v for k, v in m_two.items() if not v <= DP_METRIC_TOL})
+    if not bn_gap <= 1e-6:
+        bad["bn"] = bn_gap
+    if not same:
+        bad["ranks_identical"] = False
+    want = {k: one_launches[k] for k in ("fwd", "bwd")}
+    if any({k: r["launches"][k] for k in want} != want for r in ranks):
+        bad["launches"] = [r["launches"] for r in ranks]
+    if not all(g["of_largest"] > DP_UPDATE_TOL for g in control.values()):
+        bad["control_within_bound"] = control
+    if bad:
+        raise AssertionError(f"TP SGD witness: the model group differs from one rank beyond "
+                             f"the bounds: {bad}")
+    return {"one_rank": one_launches, **{f"rank{r}": x["launches"] for r, x in enumerate(ranks)}}
+
+
+def one_rank_run(fk_cuda, trunk_cuda, args: list) -> dict:
+    """``run_fk_gan.main(args)`` in this process as a reference for
+    grid_run: its trained weights, run directory, launches, scores and
+    seconds."""
+    from dhaug_torch import run_fk_gan
+    reset_counts(fk_cuda, trunk_cuda)
+    t0 = time.perf_counter()
+    result = run_fk_gan.main(args)
+    seconds = time.perf_counter() - t0
+    return {"nets": net_weights(result), "run_dir": Path(result["run_dir"]),
+            "launches": read_counts(fk_cuda, trunk_cuda), "scores": result["scores"],
+            "epoch_seconds": result["epoch_seconds"], "seconds": seconds}
+
+
+def phase_tensor_parallel(fk_cuda, trunk_cuda, main_ref: dict) -> dict:
+    """--model_parallel_devices on the one card: (a) the main command with
+    --model_parallel_devices 2 must stop before any launch (one card
+    visible); (b) the full-width SGD witness (a model group of two gloo
+    ranks vs one rank computing column blocks, beside a control that must
+    fail); (c) the main command on a model group of two gloo ranks sharing
+    cuda:0 against the main phase's one-rank run; (d) the video command
+    cut to 2 epochs of half the clips (``--downsample 2``: 4 GAN
+    iterations an epoch, the motion critics from epoch 0, the posenet in
+    epoch 1) on the model group against the same command on one rank
+    here.  (d) is cut because every wide layer's 4608-row activations
+    cross host memory twice a pass on gloo: the full video command took
+    354 s on the model group (an H100 80GB HBM3 at 700 W).  Two ranks on
+    one card compete for it: their times are no scaling number."""
+    from dhaug_torch import run_fk_gan
+
+    launches = {}
+    reset_counts(fk_cuda, trunk_cuda)
+    args = MAIN_ARGS + ["--model_parallel_devices", "2", "--data_root", str(REPO),
+                        "--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_refused")]
+    try:
+        run_fk_gan.main(args)
+        raise AssertionError("--model_parallel_devices 2 ran on one card")
+    except SystemExit as exc:
+        message = str(exc)
+    launches["tp_refused"] = read_counts(fk_cuda, trunk_cuda)
+    emit({"phase": "tensor_parallel", "path": "refused", "message": message,
+          "launches": launches["tp_refused"]})
+    if "--data_parallel_devices 1 x --model_parallel_devices 2 requests 2 devices but only " \
+            "1 device(s)" not in message or any(launches["tp_refused"].values()):
+        raise AssertionError(f"refusal: {message!r}, launches {launches['tp_refused']}")
+
+    for who, counts in tp_sgd_witness(fk_cuda, trunk_cuda).items():
+        launches[f"tp_sgd_witness_{who}"] = counts
+    flag = ["--model_parallel_devices", str(TP_DEVICES_M), "--data_root", str(REPO)]
+    tags = ["train_G_iter_PoseFk/Fk_d3d_Wasserstein_D", "train_G_iter_PoseFk/d2d_Wasserstein_D"]
+    args = MAIN_ARGS + flag + ["--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_main")]
+    for r, counts in enumerate(grid_run("tensor_parallel", "main_model_group_2", args, main_ref,
+                                        tags, TP_DEVICES_M)):
+        launches[f"tp_main_rank{r}"] = counts
+    args = with_flags(VIDEO_ARGS, single_dis_warmup_epoch=0, downsample=2, data_root=REPO)
+    video_ref = one_rank_run(fk_cuda, trunk_cuda, args + [
+        "--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_video_one_rank")])
+    launches["tp_video_one_rank"] = video_ref["launches"]
+    check_scores("tp_video_one_rank", video_ref["scores"])
+    args = args + flag[:2] + ["--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_video")]
+    tags += ["train_G_iter_PoseFk/motion_Fk_d3d_Wasserstein_D",
+             "train_G_iter_PoseFk/motion_d2d_Wasserstein_D"]
+    for r, counts in enumerate(grid_run("tensor_parallel", "video_model_group_2", args,
+                                        video_ref, tags, TP_DEVICES_M)):
+        launches[f"tp_video_rank{r}"] = counts
     return launches
 
 
@@ -1667,14 +2012,17 @@ def main() -> int:
     augment_launches = phase_augment(fk_cuda, trunk_cuda)
     baseline_launches = phase_baseline(fk_cuda, trunk_cuda, posenet_dirs["gcn"])
     video_launches, video_ref = phase_video(fk_cuda, trunk_cuda)
-    extras_launches = phase_cli_extras(fk_cuda, trunk_cuda, device)
+    extras_launches = phase_cli_extras(fk_cuda, trunk_cuda, device, main_ref)
     t0 = time.perf_counter()
     dp_launches = phase_data_parallel(fk_cuda, trunk_cuda, main_ref, video_ref, synth_ref)
     emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    tp_launches = phase_tensor_parallel(fk_cuda, trunk_cuda, main_ref)
+    emit({"phase": "tensor_parallel", "seconds": time.perf_counter() - t0})
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
              **augment_launches, "baseline": baseline_launches, **video_launches,
-             **extras_launches, **dp_launches}
+             **extras_launches, **dp_launches, **tp_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 

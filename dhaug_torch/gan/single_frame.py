@@ -34,6 +34,7 @@ from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig, head_t
 from dhaug_torch.ops.bones import reskin_pose
 from dhaug_torch.ops.camera import project_to_2d
 from dhaug_torch.parallel import mesh
+from dhaug_torch.parallel.tensor import assert_model_sharded, shard_module_tp
 from dhaug_torch.train.state import adam_gan
 
 # The JAX package re-skins in fixed 16384-row chunks and draws 16384 template
@@ -74,8 +75,18 @@ def reskin_dataset(ds: PoseDataset, templates: np.ndarray, rng: np.random.Genera
     return PoseDataset(torch.cat(out3d), torch.cat(out2d), ds.cams)
 
 
+def shard_gan_nets(*nets) -> None:
+    """Under tensor parallelism, the GAN nets' wide layers split over the
+    model axis, which must shard at least one of them
+    (dhaug_tpu/gan/single_frame.py:197-207)."""
+    for net in nets:
+        shard_module_tp(net)
+    assert_model_sharded(*nets)
+
+
 def build_gan(args, train_subjects, device) -> SingleFrameSteps:
-    """G + D3d + D2d with their Adam optimizers (model_fk_gan_train.py:97-128)."""
+    """G + D3d + D2d with their Adam optimizers (model_fk_gan_train.py:97-128),
+    the wide layers column-parallel under tensor parallelism."""
     gen_cfg = GeneratorConfig(dense_dim=args.Gen_DenseDim, output_dim=args.GAN_OUTPUT_DIM,
                               use_pre_angle=args.GAN_whether_use_preAngle,
                               use_global_rot=args.whether_use_RT,
@@ -86,6 +97,7 @@ def build_gan(args, train_subjects, device) -> SingleFrameSteps:
     gen = FkGeneratorNet(gen_cfg).to(device)
     d3d = Fk3DDiscriminator(args.Dis_DenseDim_3D).to(device)
     d2d = Fk2DDiscriminator(args.Dis_DenseDim_2D).to(device)
+    shard_gan_nets(gen, d3d, d2d)
     quats, trans, intrs = camera_bank(train_subjects, device)
     return SingleFrameSteps(gen, d3d, d2d,
                             adam_gan(gen.parameters(), args.lr_g),
@@ -100,12 +112,16 @@ def dump_angle_heatmap(steps: SingleFrameSteps, seed: int, path: str, batch: int
     over ``batch`` noise draws (the reference dumps one every 500 generator
     calls, Fk_generator.py:172-175), and the paper figure's knee-pair
     density beside it.  The noise comes from a generator of its own seeded
-    with ``seed``, so the dump leaves the training stream as it was."""
+    with ``seed``, so the dump leaves the training stream as it was.  Every
+    rank runs the generator (its tensor-parallel layers gather over the
+    model group); global rank 0 draws."""
     from dhaug_torch.utils.viz import plot_angle_pair_density, plot_dof_angle_heatmap
     device = steps.cam_quats.device
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     head = steps.gen(torch.randn((batch, steps.hyper.noise_dim), generator=g, device=device))
+    if not mesh.current().is_main:
+        return
     angles37, _ = head_to_angles(head.reshape(batch, -1, steps.gen_cfg.output_dim),
                                  steps.gen_cfg)
     flat = angles37.reshape(-1, 37).cpu().numpy()
@@ -121,8 +137,8 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
                   record_dir: Optional[str] = None):
     """One GAN pass over the epoch's batches.  Returns the fake (cam-3D, 2D,
     intrinsics) dataset for the posenet, or None when no batch fits.  With
-    ``record_dir`` the angle heatmap is dumped there when this epoch crossed
-    a 500-iteration boundary, or at the very start."""
+    ``record_dir`` (on every rank) the angle heatmap is dumped there when
+    this epoch crossed a 500-iteration boundary, or at the very start."""
     device = steps.cam_quats.device
     dev_3d = torch.as_tensor(gt2d3d.poses_3d, device=device)
     dev_cam = torch.as_tensor(gt2d3d.cams, device=device)

@@ -39,7 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dhaug_torch.gan.single_frame import gather_batches
+from dhaug_torch.gan.single_frame import gather_batches, shard_gan_nets
 from dhaug_torch.gan.wgan import GanHyper, SingleFrameSteps, _step, camera_bank, critic_step
 from dhaug_torch.models.discriminators import (Fk2DDiscriminator, Fk3DDiscriminator,
                                                MotionFk2DDiscriminator,
@@ -208,7 +208,8 @@ class VideoSteps(SingleFrameSteps):
 
 def build_video_gan(args, train_subjects, video_frames: int, device) -> VideoSteps:
     """G (a head of F x 35) + D3d + D2d + the two motion critics, each with
-    its Adam (video_mode_my_get_poseFk_model, model_fk_gan_train.py:131-173)."""
+    its Adam (video_mode_my_get_poseFk_model, model_fk_gan_train.py:131-173),
+    the wide layers column-parallel under tensor parallelism."""
     gen_cfg = GeneratorConfig(dense_dim=args.Gen_DenseDim, output_dim=args.GAN_OUTPUT_DIM,
                               use_pre_angle=args.GAN_whether_use_preAngle,
                               use_global_rot=args.whether_use_RT, video_frames=video_frames,
@@ -225,6 +226,7 @@ def build_video_gan(args, train_subjects, video_frames: int, device) -> VideoSte
         use_pos_branch=args.motion_Dis_whether_use_3dPos_branch,
         use_diff_branch=args.motion_Dis_whether_use_3dDiff_branch).to(device)
     md2d = MotionFk2DDiscriminator(video_frames, args.video_Dis_DenseDim_2D).to(device)
+    shard_gan_nets(gen, d3d, d2d, md3d, md2d)
     opts = [adam_gan(gen.parameters(), args.lr_g)] + \
         [adam_gan(net.parameters(), args.lr_d) for net in (d3d, d2d, md3d, md2d)]
     return VideoSteps(gen, d3d, d2d, md3d, md2d, *opts, gen_cfg, hyper,

@@ -22,8 +22,13 @@ substitute SGD.
 Under data parallelism (``parallel/mesh.py``) the steps take this rank's
 rows of the batch.  Every draw, and every injected one, has the global
 batch shape and the rank keeps its rows, so N ranks draw what one device
-draws; each update's gradients are averaged over the ranks (``_step``), as
-GSPMD's all-reduce does for the JAX package's steps.
+draws; each update's gradients are averaged over the data group
+(``_step``), as GSPMD's all-reduce does for the JAX package's steps.  Under
+tensor parallelism (``parallel/tensor.py``) a column block's gradient is
+whole on its rank and a whole parameter's the same on every rank of a
+model group, so the model axis needs no all-reduce; the penalty's double
+backward runs through the column-parallel layers' differentiable
+backwards.
 """
 from __future__ import annotations
 
@@ -66,8 +71,8 @@ def camera_bank(train_subjects, device=None):
 
 
 def _step(opt: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:
-    """Gradient of ``loss`` for ``params`` only, averaged over the ranks of
-    a data-parallel group, then one optimizer step."""
+    """Gradient of ``loss`` for ``params`` only, averaged over the data
+    group, then one optimizer step."""
     grads = mesh.current().all_reduce_grads(torch.autograd.grad(loss, params))
     for p, g in zip(params, grads):
         p.grad = g

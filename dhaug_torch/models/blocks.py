@@ -48,11 +48,15 @@ def dense(in_dim: int, out_dim: int) -> nn.Linear:
     return layer
 
 
-def apply_dense(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+def apply_dense(layer: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """``layer(x)``, or with a compute ``dtype`` flax's ``Dense(dtype=...)``:
-    input, weight and bias cast to it, the bias added to the product in it."""
+    input, weight and bias cast to it, the bias added to the product in it.
+    A tensor-parallel layer (``parallel/tensor.py``) takes the dtype itself,
+    so its product keeps its collectives."""
     if dtype is None:
         return layer(x)
+    if not isinstance(layer, nn.Linear):
+        return layer(x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 

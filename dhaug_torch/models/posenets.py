@@ -26,6 +26,10 @@ from that explicit ``torch.Generator`` (on the tensors' device), so a run is
 reproducible from its seed; without one they fall back to torch's default
 generator.  A rank of a data-parallel group draws each mask at the global
 batch shape and keeps its own rows, so N ranks draw what one device draws.
+Under tensor parallelism the wide layers are column-parallel
+(``parallel/tensor.py``) and their outputs whole, so the ranks of a model
+group draw the same masks and batch norm sees every channel; both read
+the data axis only.
 """
 from __future__ import annotations
 

@@ -24,9 +24,11 @@ JAX CLI does.
         --epochs 50 --batch_size 1024
 
 Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
-card raises.  ``--data_parallel_devices N`` trains on N ranks, one process a
-device (``parallel/mesh.py``), as ``run_fk_gan`` does; rank 0 writes every
-file.
+card raises.  ``--data_parallel_devices D --model_parallel_devices M``
+trains on a grid of D x M ranks, one process a device, as ``run_fk_gan``
+does (``parallel/mesh.py``, ``parallel/tensor.py``); global rank 0 writes
+every file, in the single-device layout.  ``--ckpt_format orbax`` writes
+each checkpoint as a ``ckpt_<suffix>/`` directory (``utils/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -40,10 +42,11 @@ import torch
 import dhaug_torch
 from dhaug_torch.models.factory import make_posenet
 from dhaug_torch.parallel import mesh
+from dhaug_torch.parallel.tensor import full_state_dict, shard_module_tp
 from dhaug_torch.train.config import parse_baseline_args
 from dhaug_torch.train.data_prep import prepare_data
 from dhaug_torch.train.posenet import evaluate_both, train_epoch
-from dhaug_torch.train.runners import make_logger, make_run_dir, refuse_unported
+from dhaug_torch.train.runners import make_logger, make_run_dir
 from dhaug_torch.train.state import adam_posenet, set_learning_rate, step_exp_lr
 from dhaug_torch.utils.checkpoint import (load_posenet_checkpoint, resolve_posenet_weights,
                                           save_snapshot)
@@ -86,12 +89,11 @@ def main(argv=None) -> dict:
     args = parse_baseline_args(argv)
     if args.pretrain and not args.evaluate:
         raise SystemExit("--pretrain true requires --evaluate <posenet checkpoint>")
-    refuse_unported(args)
     launched = mesh.launch_from_args(args, "dhaug_torch.run_baseline", argv)
     if launched is not None:
         return launched
     dp = mesh.current()
-    device = dp.device if dp.group is not None else dhaug_torch.resolve_device(args.device)
+    device = dp.device if dp.device is not None else dhaug_torch.resolve_device(args.device)
 
     np_rng = np.random.default_rng(args.random_seed)
     torch.manual_seed(args.random_seed)  # weight initialisation
@@ -110,6 +112,7 @@ def main(argv=None) -> dict:
         resolve_posenet_weights(load_posenet_checkpoint(args.evaluate), model,
                                 args.posenet_name)
         print(f"==> Pretrained posenet loaded from {args.evaluate} (warm-start fine-tuning)")
+    shard_module_tp(model)
     dp.broadcast_modules(model)
 
     opt = adam_posenet(model.parameters(), args.lr)
@@ -141,16 +144,16 @@ def main(argv=None) -> dict:
                          ("dhp_p1", dhp["p1"]), ("dhp_pck", dhp["pck"])]:
             summary.writer.add_scalar(f"posenet/{tag}", val, epoch)
 
-        ckpt = {"epoch": epoch + 1, "lr": lr_now, "error": h36m["p1"],
-                "state_dict": model.state_dict(), "posenet_name": args.posenet_name}
+        ckpt = lambda: {"epoch": epoch + 1, "lr": lr_now, "error": h36m["p1"],
+                        "state_dict": full_state_dict(model), "posenet_name": args.posenet_name}
         if best_h36m is None or h36m["p1"] < best_h36m:
             best_h36m = h36m["p1"]
-            save_snapshot(ckpt, run_dir, suffix="best", fmt=args.ckpt_format)
+            save_snapshot(ckpt(), run_dir, suffix="best", fmt=args.ckpt_format)
         if best_dhp is None or dhp["p1"] < best_dhp:
             best_dhp = dhp["p1"]
-            save_snapshot(ckpt, run_dir, suffix="best_dhp_p1", fmt=args.ckpt_format)
+            save_snapshot(ckpt(), run_dir, suffix="best_dhp_p1", fmt=args.ckpt_format)
         if (epoch + 1) % max(args.snapshot, 1) == 0:
-            save_snapshot(ckpt, run_dir, suffix="epoch_{:04d}".format(epoch + 1),
+            save_snapshot(ckpt(), run_dir, suffix="epoch_{:04d}".format(epoch + 1),
                           fmt=args.ckpt_format)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

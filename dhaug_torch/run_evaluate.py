@@ -26,8 +26,10 @@ sequence boundaries, so a window may straddle one).
     python -m dhaug_torch.run_evaluate --evaluate .../ckpt_best_h36m_p1.ckpt \\
         --posenet_name mulit_farme_videopose --architecture 3,3
 
-Runs on CUDA unless ``--device cpu`` is given; ``--device cuda`` without a
-card raises.
+``--evaluate`` also takes a ``--ckpt_format orbax`` directory of either
+training CLI.  Runs on one device, as the JAX CLI does (it reads no
+parallelism flag), on CUDA unless ``--device cpu`` is given; ``--device
+cuda`` without a card raises.
 """
 from __future__ import annotations
 
@@ -44,7 +46,6 @@ from dhaug_torch.ops.metrics import mpjpe, p_mpjpe
 from dhaug_torch.train.config import parse_baseline_args
 from dhaug_torch.train.data_prep import prepare_data
 from dhaug_torch.train.posenet import evaluate, evaluate_both, predict
-from dhaug_torch.train.runners import refuse_unported
 from dhaug_torch.train.video_runner import (evaluate_video, per_action_eval_loaders,
                                            video_data_preparation)
 from dhaug_torch.utils.checkpoint import load_posenet_checkpoint, resolve_posenet_weights
@@ -89,7 +90,6 @@ def main(argv=None) -> dict:
     ckpt = load_posenet_checkpoint(args.evaluate)
     args.posenet_name = str(ckpt.get("posenet_name", args.posenet_name))
     video = args.posenet_name.startswith("mulit_farme")
-    refuse_unported(args)
 
     print("==> Loading dataset...")
     if video:

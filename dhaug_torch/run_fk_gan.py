@@ -36,16 +36,20 @@ of the synthetic fixture are written there (``data/synthetic.py``).
 ``--bf16_trunk true`` computes the generator's trunk in bf16 (fp32
 parameters).  ``--record_all_picture true`` (needs matplotlib) dumps fake
 and real poses every epoch and the angle heatmap every 500 iterations under
-``<run dir>/tmp/``, and the GAN's epoch-mean curves last.  Flags that need
-code not ported yet are refused with an error (the orbax format, tensor
-parallelism).  Besides the checkpoints the run writes ``log.txt`` and
-``metrics.jsonl``.
+``<run dir>/tmp/``, and the GAN's epoch-mean curves last.  Besides the
+checkpoints the run writes ``log.txt`` and ``metrics.jsonl``;
+``--ckpt_format orbax`` writes the snapshot as a ``ckpt_resume_latest/``
+directory (``utils/checkpoint.py``), which ``--resume`` takes as well.
 
-``--data_parallel_devices N`` trains on N ranks, one process a device
-(``parallel/mesh.py``: NCCL on N cards, gloo with ``--device cpu``), and
-equals the one-device run up to the order of reductions; under
-``torchrun`` the command joins the group it is given.  Rank 0 writes every
-file, and ``main`` returns its result.
+``--data_parallel_devices D --model_parallel_devices M`` trains on a grid
+of D x M ranks, one process a device (``parallel/mesh.py``: NCCL on D x M
+cards, gloo with ``--device cpu``): each data index trains on its rows of
+every batch, and the GAN nets' and the posenet's layers 512 or more wide
+split their output columns over the M ranks of a model group
+(``parallel/tensor.py``).  It equals the one-device run up to the order of
+reductions; under ``torchrun`` the command joins the group it is given.
+Global rank 0 writes every file, in the single-device layout, and
+``main`` returns its result.
 
 A snapshot resumes bit for bit on the device type that wrote it.  Resumed on
 the other type, the weights, optimizer states and numpy stream carry over,
@@ -69,11 +73,12 @@ from dhaug_torch.gan.traditional import (TraditionalConfig, generate_traditional
 from dhaug_torch.gan.wgan import camera_bank
 from dhaug_torch.models.factory import make_posenet
 from dhaug_torch.parallel import mesh
+from dhaug_torch.parallel.tensor import full_state_dict, shard_module_tp
 from dhaug_torch.train.config import parse_aug_args
 from dhaug_torch.train.data_prep import prepare_data, train_subject_list, world_pose_pool
 from dhaug_torch.train.posenet import evaluate_both, train_epoch
 from dhaug_torch.train.runners import (check_posenet_mode, make_logger, make_run_dir,
-                                       refuse_unported, write_eval_scalars)
+                                       write_eval_scalars)
 from dhaug_torch.train.video_runner import video_mode_main
 from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
 from dhaug_torch.utils.checkpoint import (generator_state, load_snapshot, net_state,
@@ -131,7 +136,6 @@ def main(argv=None) -> dict:
     args = parse_aug_args(argv)
     if args.pretrain and not args.evaluate:
         raise SystemExit("--pretrain true requires --evaluate <posenet checkpoint>")
-    refuse_unported(args)
     if args.pretrain:
         return _pretrain_evaluate(args)
     check_posenet_mode(args)
@@ -139,7 +143,7 @@ def main(argv=None) -> dict:
     if launched is not None:
         return launched
     dp = mesh.current()
-    device = dp.device if dp.group is not None else dhaug_torch.resolve_device(args.device)
+    device = dp.device if dp.device is not None else dhaug_torch.resolve_device(args.device)
     print(f"==> device {device}; TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     method = args.data_enhancement_method
@@ -159,6 +163,7 @@ def main(argv=None) -> dict:
     posenet = make_posenet(args.posenet_name, stages=args.stages, dropout=args.dropout,
                            architecture=args.architecture,
                            skeleton=bundle.dataset.skeleton()).to(device)
+    shard_module_tp(posenet)
     pos_opt = adam_posenet(posenet.parameters(), args.lr_p)
     max_norm = 1.0 if args.max_norm else 1e9
     real_2d = torch.as_tensor(bundle.train_det2d3d.poses_2d, device=device)
@@ -232,8 +237,7 @@ def main(argv=None) -> dict:
             fake_ds = run_gan_epoch(gan, gt2d3d, PoseTarget(gt2d3d.poses_2d),
                                     PoseTarget(gt2d3d.poses_3d), args.batch_size, np_rng,
                                     generator, summary, summary.writer,
-                                    record_dir=tmp_dir if args.record_all_picture and dp.is_main
-                                    else None)
+                                    record_dir=tmp_dir if args.record_all_picture else None)
         elif method == "normal":
             pose16, *_ = generate_traditional_poses(generator, pose_pool, trad_cfg)
             fake_ds = PoseDataset(*project_through_cameras(pose16, *cams), None)
@@ -268,16 +272,16 @@ def main(argv=None) -> dict:
 
         # best-posenet checkpoints (run_Fk_GAN.py:238-249); the state_dict
         # carries the BatchNorm running statistics
-        ckpt = {"epoch": summary.epoch, "model_pos": posenet.state_dict(),
-                "posenet_name": args.posenet_name}
+        ckpt = lambda: {"epoch": summary.epoch, "model_pos": full_state_dict(posenet),
+                        "posenet_name": args.posenet_name}
         if dhp["p1"] and (dhpp1_best is None or dhpp1_best > dhp["p1"]):
             dhpp1_best = dhp["p1"]
             logger.record_args(f"==> Saving checkpoint at epoch '{summary.epoch}', "
                                f"with dhp_p1 {dhpp1_best}")
-            save_ckpt(ckpt, run_dir, suffix="best_dhp_p1")
+            save_ckpt(ckpt(), run_dir, suffix="best_dhp_p1")
         if h36m["p1"] and (s911p1_best is None or s911p1_best > h36m["p1"]):
             s911p1_best = h36m["p1"]
-            save_ckpt(ckpt, run_dir, suffix="best_h36m_p1")
+            save_ckpt(ckpt(), run_dir, suffix="best_h36m_p1")
         if (summary.epoch + 1) % max(args.snapshot, 1) == 0:
             save_snapshot(full_state_ckpt(now_epoch), run_dir, suffix="resume_latest",
                           fmt=args.ckpt_format)

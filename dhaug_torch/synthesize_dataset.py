@@ -2,7 +2,8 @@
 
 Port of ``scripts/synthesize_dataset.py``: sample N (3D, 2D, camera) pairs
 from a trained generator, loaded from a snapshot that
-``python -m dhaug_torch.run_fk_gan`` wrote (``--ckpt``), or from a fresh
+``python -m dhaug_torch.run_fk_gan`` wrote (``--ckpt``: a ``.ckpt`` file or a
+``--ckpt_format orbax`` directory), or from a fresh
 initialisation (``--random_init true``).  Each batch runs the generator
 trunk (kernel B3 on the card), the bone scalers and the FK (kernel B1),
 then puts the whole batch through one random H36M training camera.
@@ -70,7 +71,8 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", default=8192, type=int, help="per-dispatch batch")
     ap.add_argument("--out", default="dh_synth.npz", type=str)
     ap.add_argument("--ckpt", default="", type=str,
-                    help="dhaug_torch.run_fk_gan resume snapshot with a gen_state")
+                    help="dhaug_torch.run_fk_gan resume snapshot with a gen_state "
+                         "(a .ckpt file or an orbax directory)")
     ap.add_argument("--random_init", default=False, type=_str2bool)
     ap.add_argument("--Gen_DenseDim", default=1000, type=int)
     ap.add_argument("--seed", default=0, type=int)

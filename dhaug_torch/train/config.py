@@ -4,7 +4,6 @@
 A copy of the JAX package's two parsers (``dhaug_tpu/train/config.py``)
 with every reference flag under its name and default.  The one change:
 the JAX-only ``--jax_platform`` becomes ``--device`` (default ``cuda``).
-Flags whose code is not ported yet are parsed and refused by the runners.
 """
 from __future__ import annotations
 
@@ -43,15 +42,14 @@ def _add_common(parser: argparse.ArgumentParser):
     parser.add_argument("--num_workers", default=0, type=int, metavar="N",
                         help="accepted for CLI compatibility; the host feed is single-process")
     parser.add_argument("--model_parallel_devices", default=1, type=int,
-                        help="tensor parallelism (the JAX package shards Dense "
-                             "layers wider than 512 over a 'model' mesh axis); "
-                             "not ported yet: refused above 1 (ROADMAP A16b)")
+                        help="tensor parallelism: layers 512 or more wide split "
+                             "their output columns over this many ranks of each "
+                             "data index (D x M ranks in all)")
     parser.add_argument("--ckpt_format", default="pickle", type=str,
                         choices=("pickle", "orbax"),
                         help="full-state snapshot format: 'pickle' (one "
-                             ".ckpt file); 'orbax' (a ckpt_<suffix>/ "
-                             "directory in the JAX package) is not ported "
-                             "yet and refused (ROADMAP A16c)")
+                             ".ckpt file) or 'orbax' (a ckpt_<suffix>/ "
+                             "directory: arrays/ and aux.pkl)")
     # extensions beyond the reference's flags
     parser.add_argument("--data_root", default=".", type=str,
                         help="directory containing data/ and data_extra/")

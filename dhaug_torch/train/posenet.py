@@ -16,7 +16,9 @@ Port of ``dhaug_tpu/train/posenet.py`` with ``train/runners.py``'s
 Under data parallelism (``parallel/mesh.py``) every pass draws the global
 permutation and each rank trains on its rows of every batch; the gradients
 are averaged over the ranks before the global-norm clip, so the clip sees
-the global gradient, and the returned mean loss is the ranks' mean.  The
+the global gradient, and the returned mean loss is the ranks' mean; under
+tensor parallelism the clip adds the column blocks' squares over the model
+group (``train/state.clip_by_global_norm``).  The
 frame-weighted evaluation shards each batch over the ranks and
 all-reduces the sums of the per-frame errors; the sequence-weighted one
 runs whole on every rank.
@@ -31,6 +33,7 @@ import torch
 from dhaug_torch.ops.augment import flip_pose, time_reverse
 from dhaug_torch.ops.metrics import mpjpe, p_mpjpe_per_sample
 from dhaug_torch.parallel import mesh
+from dhaug_torch.parallel.tensor import sharded_parameters
 from dhaug_torch.train.state import clip_by_global_norm
 
 _AUC_THRESHOLDS = np.linspace(0.0, 150.0, 31)
@@ -54,7 +57,7 @@ def train_step(model, opt, inputs_2d, targets_3d_rel, max_norm: float,
     params = [p for p in model.parameters() if p.grad is not None]
     for p, g in zip(params, mesh.current().all_reduce_grads([p.grad for p in params])):
         p.grad = g
-    clip_by_global_norm(model.parameters(), max_norm)
+    clip_by_global_norm(model.parameters(), max_norm, sharded_parameters(model))
     opt.step()
     return loss.detach()
 

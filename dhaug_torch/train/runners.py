@@ -1,8 +1,7 @@
 """Runner plumbing shared by the entry points (port of the parts of
-``dhaug_tpu/train/runners.py`` the runners use, and the refusal of the
-flags not ported yet: the orbax format and tensor parallelism).  Under data
-parallelism only rank 0 makes the run directory and writes the logs; the
-other ranks get its path and loggers that write nothing."""
+``dhaug_tpu/train/runners.py`` the runners use).  Under data or tensor
+parallelism only global rank 0 makes the run directory and writes the
+logs; the other ranks get its path and loggers that write nothing."""
 from __future__ import annotations
 
 import datetime
@@ -15,21 +14,6 @@ from dhaug_torch.utils.log import Logger, Summary
 
 LOG_COLUMNS = ["epoch", "lr", "error_h36m_p1", "error_h36m_p2",
                "error_3dhp_p1", "error_3dhp_p2", "PCK", "AUC"]
-
-
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError naming every flag of ``args`` whose code is
-    not ported yet: the orbax format (ROADMAP A16c) and tensor parallelism
-    (A16b)."""
-    unported = []
-    if args.ckpt_format != "pickle":
-        unported.append(f"--ckpt_format {args.ckpt_format} (ROADMAP A16c)")
-    if args.model_parallel_devices > 1:
-        unported.append("--model_parallel_devices above 1 (ROADMAP A16b, tensor parallelism)")
-    if unported:
-        raise NotImplementedError(
-            "not ported yet to dhaug_torch: " + ", ".join(unported)
-            + " (the JAX package's CLIs have them)")
 
 
 def check_posenet_mode(args) -> None:

@@ -17,6 +17,8 @@ from typing import Iterable
 
 import torch
 
+from dhaug_torch.parallel import mesh
+
 
 def adam_gan(params: Iterable[torch.nn.Parameter], lr: float = 1e-4) -> torch.optim.Adam:
     """GAN Adam: betas (0.5, 0.9) (model_fk_gan_train.py:112-118)."""
@@ -29,11 +31,22 @@ def adam_posenet(params: Iterable[torch.nn.Parameter], lr: float = 1e-4) -> torc
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float,
+                        sharded: Iterable[torch.nn.Parameter] = ()) -> torch.Tensor:
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place and
-    without a host sync.  Returns the global norm before clipping."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    without a host sync.  Returns the global norm before clipping.  Under
+    tensor parallelism the ``sharded`` parameters (column blocks,
+    ``parallel/tensor.sharded_parameters``) add their squares summed over
+    the model group and the whole ones count once, so the norm is that of
+    the single-device parameters."""
+    params = [p for p in params if p.grad is not None]
+    blocks = {id(p) for p in sharded}
+    grads = [p.grad for p in params]
+    norm2 = sum(torch.sum(p.grad * p.grad) for p in params if id(p) not in blocks)
+    if blocks:
+        local = torch.stack([torch.sum(p.grad * p.grad) for p in params if id(p) in blocks])
+        norm2 = norm2 + mesh.current().model.all_reduce_(local.sum())
+    norm = torch.sqrt(norm2)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

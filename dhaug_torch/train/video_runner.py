@@ -29,8 +29,10 @@ the run ends with the GAN's epoch-mean curves.
 Under data parallelism (``parallel/mesh.py``) each rank trains on its rows
 of every batch of clips and windows, the windowed evaluation flavour
 shards its batches over the ranks, the whole-sequence one runs whole on
-every rank (dhaug_tpu/train/video_runner.py:262), and rank 0 writes the
-checkpoints, snapshots and pictures.
+every rank (dhaug_tpu/train/video_runner.py:262), and global rank 0 writes
+the checkpoints, snapshots and pictures.  Under tensor parallelism the
+five GAN nets, the posenet and its evaluation twin hold column blocks of
+their wide layers (``parallel/tensor.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from dhaug_torch.gan.single_frame import reskin_rows
 from dhaug_torch.gan.video import build_video_gan, run_video_gan_epoch
 from dhaug_torch.models.factory import make_posenet, receptive_field
 from dhaug_torch.parallel import mesh
+from dhaug_torch.parallel.tensor import full_state_dict, shard_module_tp
 from dhaug_torch.train.data_prep import prepare_data
 from dhaug_torch.train.posenet import (device_windows, evaluate_batches, evaluate_sequences,
                                        train_video_clips, train_video_windows)
@@ -185,8 +188,11 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
     kw = dict(stages=args.stages, dropout=args.dropout, architecture=args.architecture,
               skeleton=bundle.dataset.skeleton())
     posenet = make_posenet(args.posenet_name, flag="train", **kw).to(device)
-    # evaluation runs the twin with the training weights
+    # evaluation runs the twin with the training weights (the same column
+    # blocks under tensor parallelism)
     eval_net = make_posenet(args.posenet_name, flag="test", **kw).to(device)
+    shard_module_tp(posenet)
+    shard_module_tp(eval_net)
     pos_opt = adam_posenet(posenet.parameters(), args.lr_p)
     max_norm = 1.0 if args.max_norm else 1e9
 
@@ -302,14 +308,14 @@ def video_mode_main(args, train_subjects: List[str], device) -> dict:
         h36m, dhp = scores["h36m"], scores["dhp"]
         logger.append([summary.epoch, lr_now, h36m["p1"], h36m["p2"], dhp["p1"], dhp["p2"],
                        dhp.get("pck", 0), dhp.get("auc", 0)])
-        ckpt = {"epoch": summary.epoch, "model_pos": posenet.state_dict(),
-                "posenet_name": args.posenet_name}
+        ckpt = lambda: {"epoch": summary.epoch, "model_pos": full_state_dict(posenet),
+                        "posenet_name": args.posenet_name}
         if dhp["p1"] and (dhpp1_best is None or dhpp1_best > dhp["p1"]):
             dhpp1_best = dhp["p1"]
-            save_ckpt(ckpt, run_dir, suffix="best_dhp_p1")
+            save_ckpt(ckpt(), run_dir, suffix="best_dhp_p1")
         if h36m["p1"] and (s911p1_best is None or s911p1_best > h36m["p1"]):
             s911p1_best = h36m["p1"]
-            save_ckpt(ckpt, run_dir, suffix="best_h36m_p1")
+            save_ckpt(ckpt(), run_dir, suffix="best_h36m_p1")
         if (summary.epoch + 1) % max(args.snapshot, 1) == 0:
             save_snapshot(full_state_ckpt(now_epoch), run_dir, suffix="resume_latest",
                           fmt=args.ckpt_format)

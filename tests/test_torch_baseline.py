@@ -156,7 +156,8 @@ def test_evaluate_refuses_video_checkpoints(tmp_path):
     test_torch_cli.py, tests/test_torch_jax_checkpoints.py), but two kinds
     stay refused before any data is read: the JAX package's full-state
     snapshot of a video run (its posenet sits in a flax NetState, whose
-    class the port's unpickler will not resolve) and an orbax directory."""
+    class the port's unpickler will not resolve) and its orbax directory
+    (the port reads its own orbax snapshots, not the JAX package's)."""
     import pickle
 
     import optax
@@ -171,10 +172,13 @@ def test_evaluate_refuses_video_checkpoints(tmp_path):
     refusal = r"dhaug_tpu\.train\.state\.NetState.*JAX package full-state snapshot"
     with pytest.raises(pickle.UnpicklingError, match=refusal):
         run_evaluate.main(SMALL + ["--evaluate", path, "--architecture", "3,3"])
-    orbax_dir = tmp_path / "ckpt_resume_latest"
-    orbax_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="orbax snapshot directory"):
-        run_evaluate.main(SMALL + ["--evaluate", str(orbax_dir), "--architecture", "3,3"])
+    from dhaug_tpu.utils.checkpoint import save_ckpt_orbax
+    orbax_dir = save_ckpt_orbax({"epoch": 1, "pos_state": {"w": np.zeros(3, np.float32)},
+                                 "posenet_name": "mulit_farme_videopose"},
+                                str(tmp_path), suffix="orbax")
+    with pytest.raises(NotImplementedError,
+                       match="orbax snapshot directory written by the JAX package"):
+        run_evaluate.main(SMALL + ["--evaluate", orbax_dir, "--architecture", "3,3"])
 
 
 @pytest.mark.parametrize("mode", ["mix", "replace"])

@@ -1,7 +1,8 @@
 """Checkpoints and resume in the port (dhaug_torch/utils/checkpoint.py and
-``run_fk_gan``'s best-posenet saves, snapshots and ``--resume``) on the
-CPU.  A stopped-and-resumed run must equal the uninterrupted one bit for
-bit: every parameter, buffer and optimizer state under ``torch.equal``."""
+``run_fk_gan``'s best-posenet saves, snapshots in either ``--ckpt_format``
+and ``--resume``) on the CPU.  A stopped-and-resumed run must equal the
+uninterrupted one bit for bit: every parameter, buffer and optimizer state
+under ``torch.equal``."""
 import os
 
 import numpy as np
@@ -130,13 +131,105 @@ def test_snapshot_round_trip_keeps_rng_states(tmp_path):
     assert (saved["epoch"], saved["best"], saved["lr"]) == (4, None, 0.5)
 
 
-def test_orbax_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
-        save_snapshot({"epoch": 0}, str(tmp_path), suffix="x", fmt="orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        load_snapshot(str(tmp_path))
+def _same(a, b) -> bool:
+    """Equal trees: the same containers and keys, tensors equal in dtype
+    and bits, every other leaf of the same type and value."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def test_orbax_snapshots_hold_what_the_pickle_holds(tmp_path):
+    """``--ckpt_format orbax``: a ``ckpt_<suffix>/`` directory with
+    ``arrays/`` (one .npy a leaf and an index) and ``aux.pkl``, which loads
+    as the pickle snapshot of the same state does: 128-bit ints, None,
+    tuples, int-keyed optimizer states and bf16 tensors included; an
+    unknown format is refused."""
+    np_rng = np.random.default_rng(123)
+    net = FkGeneratorNet(GeneratorConfig(dense_dim=32))
+    opt = torch.optim.Adam(net.parameters())
+    net(torch.randn(4, 128)).sum().backward()
+    opt.step()
+    state = {"epoch": 4, "np_rng": np_rng.bit_generator.state, "best": None, "lr": 0.5,
+             "gen_state": {"model": net.state_dict(), "opt": opt.state_dict()},
+             "pair": (1, "a"), "half": torch.arange(3, dtype=torch.bfloat16)}
+    path = save_snapshot(state, str(tmp_path), suffix="resume_latest", fmt="orbax")
+    assert path == str(tmp_path / "ckpt_resume_latest")
+    assert sorted(os.listdir(path)) == ["arrays", "aux.pkl"]
+    assert "index.json" in os.listdir(os.path.join(path, "arrays"))
+    pickled = load_snapshot(save_snapshot(state, str(tmp_path), suffix="p"))
+    assert _same(load_snapshot(path), pickled) and _same(load_snapshot(path), state)
+    # written again over the old directory
+    assert _same(load_snapshot(save_snapshot(state, str(tmp_path), suffix="resume_latest",
+                                             fmt="orbax")), state)
     with pytest.raises(ValueError, match="ckpt_format"):
         save_snapshot({"epoch": 0}, str(tmp_path), suffix="x", fmt="msgpack")
+
+
+def test_a_jax_package_orbax_directory_is_refused(tmp_path):
+    """The JAX package's orbax snapshot (orbax/tensorstore arrays and a jax
+    treedef in aux.pkl) is refused by name before anything of it is
+    unpickled, as its full-state pickles are."""
+    from dhaug_tpu.utils.checkpoint import save_ckpt_orbax
+    path = save_ckpt_orbax({"epoch": 1, "w": np.zeros(3, np.float32), "best": None},
+                           str(tmp_path), suffix="resume_latest")
+    with pytest.raises(NotImplementedError, match="orbax snapshot directory written by the "
+                                                  "JAX package"):
+        load_snapshot(path)
+    os.remove(os.path.join(path, "aux.pkl"))
+    os.makedirs(os.path.join(path, "arrays"), exist_ok=True)
+    with open(os.path.join(path, "arrays", "index.json"), "w") as f:
+        f.write('{"format": "other", "leaves": {}}')
+    with pytest.raises(ValueError, match="unknown snapshot format"):
+        load_snapshot(path)
+
+
+@pytest.fixture(scope="module")
+def orbax_run(run_a, tmp_path_factory):
+    """run_a with ``--ckpt_format orbax``: its snapshot after epoch 1 is a
+    directory."""
+    return run_fk_gan.main(RUN + ["--ckpt_format", "orbax", "--checkpoint",
+                                  str(tmp_path_factory.mktemp("orbax"))])
+
+
+def test_the_cli_writes_the_orbax_snapshot_and_resumes_from_it_bit_identically(
+        run_a, orbax_run, tmp_path):
+    snapshot = os.path.join(orbax_run["run_dir"], "ckpt_resume_latest")
+    assert os.path.isdir(os.path.join(snapshot, "arrays"))
+    assert _same(load_snapshot(snapshot),
+                 load_snapshot(os.path.join(run_a["run_dir"], "ckpt_resume_latest.ckpt")))
+    b = run_fk_gan.main(RUN + ["--checkpoint", str(tmp_path / "b"), "--resume", snapshot])
+    assert len(b["epoch_seconds"]) == 1
+    assert b["scores"] == run_a["scores"] and b["epoch_scalars"] == run_a["epoch_scalars"]
+    ta, tb = _tensors(run_a), _tensors(b)
+    assert [k for k in ta if not torch.equal(ta[k], tb[k])] == []
+
+
+@pytest.mark.parametrize("cli", ["run_evaluate", "synthesize_dataset"])
+def test_evaluate_and_synthesis_read_an_orbax_directory(run_a, orbax_run, cli, tmp_path):
+    """``run_evaluate --evaluate`` and ``synthesize_dataset --ckpt`` take
+    the directory and give what they give on the pickle snapshot."""
+    import importlib
+    main = importlib.import_module(f"dhaug_torch.{cli}").main
+    pickled = os.path.join(run_a["run_dir"], "ckpt_resume_latest.ckpt")
+    directory = os.path.join(orbax_run["run_dir"], "ckpt_resume_latest")
+    if cli == "run_evaluate":
+        flags = ["--posenet_name", "mlp", "--stages", "1", "--batch_size", "512",
+                 "--data_root", REPO, "--device", "cpu", "--evaluate"]
+        a, b = main(flags + [pickled]), main(flags + [directory])
+        assert a["h36m"] == b["h36m"] and a["dhp"] == b["dhp"] and a["h36m"]["p1"] > 0
+    else:
+        flags = ["--device", "cpu", "--Gen_DenseDim", "32", "--n_poses", "256",
+                 "--batch", "128", "--ckpt"]
+        main(flags + [pickled, "--out", str(tmp_path / "a.npz")])
+        main(flags + [directory, "--out", str(tmp_path / "b.npz")])
+        a, b = np.load(tmp_path / "a.npz"), np.load(tmp_path / "b.npz")
+        assert a["pose3d"].shape == (256, 16, 3)
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
 def test_summary_state_dict_round_trip(tmp_path):

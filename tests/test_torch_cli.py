@@ -2,8 +2,7 @@
 tiny widths on the repo's fixtures (the MLP with the GAN; gcn and videopose
 with the GAN; the normal and NO_enhance modes; ``--pretrain``; video mode
 with both multi-frame posenets, its resume and ``run_evaluate`` on its
-checkpoints), the package's independence from JAX, and the flags it
-refuses."""
+checkpoints), and the package's independence from JAX."""
 import os
 import subprocess
 import sys
@@ -93,27 +92,6 @@ def test_device_cuda_without_a_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_fk_gan.main(TINY + ["--device", "cuda"])
-
-
-@pytest.mark.parametrize("flags", [
-    ["--ckpt_format", "orbax", "--bf16_trunk", "true"],
-    ["--model_parallel_devices", "2", "--synthetic_data", "true"],
-    ["--single_or_multi_train_mode", "multi", "--posenet_name", "mulit_farme_videopose",
-     "--data_parallel_devices", "2", "--model_parallel_devices", "2"],
-    ["--single_or_multi_train_mode", "multi", "--posenet_name", "mulit_farme_poseformer",
-     "--ckpt_format", "orbax", "--record_all_picture", "true"],
-    ["--ckpt_format", "orbax"],
-    ["--model_parallel_devices", "2"],
-    ["--record_all_picture", "true", "--data_parallel_devices", "4", "--ckpt_format", "orbax"],
-    ["--data_parallel_devices", "2", "--ckpt_format", "orbax"],
-])
-def test_unported_flags_are_refused(flags):
-    """Only the orbax format and tensor parallelism stay unported; the
-    ported flags beside them (data parallelism among them) do not lift the
-    refusal."""
-    from dhaug_torch import run_fk_gan
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_fk_gan.main(TINY + ["--device", "cpu"] + flags)
 
 
 def test_parser_keeps_every_reference_flag_and_default():

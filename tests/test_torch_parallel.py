@@ -254,8 +254,16 @@ def test_a_gan_epoch_on_two_ranks_equals_one_process(mode):
         args = ("video", W, 3, SUBJECTS, _sequences(4, n=8), 8, 5)
     one = worker.gan_epoch(*args)
     ranks = two_ranks("gan_epoch", *args)
-    for a, b in zip(ranks[0]["nets"], ranks[1]["nets"]):
-        assert all(np.array_equal(a[k], b[k]) for k in a), "the ranks' weights differ"
+    check_gan_epoch(mode, one, ranks)
+
+
+def check_gan_epoch(mode, one, ranks):
+    """The bounds of :func:`test_a_gan_epoch_on_two_ranks_equals_one_process`
+    on every rank's epoch (each rank's weights in the single-device
+    layout) against the one-process epoch ``one``."""
+    for a in ranks[1:]:
+        for x, y in zip(ranks[0]["nets"], a["nets"]):
+            assert all(np.array_equal(x[k], y[k]) for k in x), "the ranks' weights differ"
     r = ranks[0]
     for net, (want, got, grads) in enumerate(zip(one["nets"], r["nets"], one["grad_max_abs"])):
         atol = 2e-4 if mode == "video" and net == 0 else 5e-4
@@ -478,21 +486,18 @@ def test_baseline_cli_trains_on_two_ranks_like_one_process(tmp_path):
                                        "--data_parallel_devices 3"),
     (["--data_parallel_devices", "2", "--device", "cuda"],
      r"requests 2 devices but only \d+ device\(s\) are visible on platform 'cuda'"),
+    (["--model_parallel_devices", str((os.cpu_count() or 1) + 1)],
+     r"--data_parallel_devices 1 x --model_parallel_devices \d+ requests \d+ devices but "
+     r"only \d+ device\(s\) are visible on platform 'cpu'"),
+    (["--data_parallel_devices", "2", "--model_parallel_devices", "2", "--device", "cuda"],
+     r"--data_parallel_devices 2 x --model_parallel_devices 2 requests 4 devices but only "
+     r"\d+ device\(s\) are visible on platform 'cuda'"),
 ])
 def test_cli_refuses_a_request_it_cannot_meet_before_any_work(flags, error, tmp_path):
     from dhaug_torch import run_fk_gan
-    if "cuda" in flags and torch.cuda.device_count() >= 2:
-        pytest.skip("two cards are visible")
+    asked = 4 if "--model_parallel_devices" in flags else 2
+    if "cuda" in flags and torch.cuda.device_count() >= asked:
+        pytest.skip(f"{asked} cards are visible")
     with pytest.raises(SystemExit, match=error):
         run_fk_gan.main(TINY + flags + ["--checkpoint", str(tmp_path)])
     assert not os.listdir(tmp_path)
-
-
-@pytest.mark.parametrize("cli", ["run_fk_gan", "run_baseline"])
-def test_tensor_parallelism_stays_refused(cli, tmp_path):
-    import importlib
-    main = importlib.import_module(f"dhaug_torch.{cli}").main
-    flags = TINY if cli == "run_fk_gan" else ["--device", "cpu", "--data_root", REPO]
-    with pytest.raises(NotImplementedError, match="A16b"):
-        main(flags + ["--model_parallel_devices", "2", "--data_parallel_devices", "2",
-                      "--checkpoint", str(tmp_path)])
