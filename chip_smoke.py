@@ -74,7 +74,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               last epoch onto the same weights; a 2-epoch mlp
               ``run_baseline`` with it and ``run_evaluate`` on its
               ``ckpt_best/`` (its best H36M P1 within 0.05 mm);
-12. data_parallel -- ``--data_parallel_devices`` and multi-process
+12. tools  -- the port's three tools, each on the card by default, with
+              the counters set to 0 just before and read just after:
+              ``visualize_fk --sweep 3`` (its PNG; the 8 swept poses in one
+              B1 launch, held to the plain FK), ``make_fk_inspector`` (the
+              page; its 4 goldens in one B1 launch, held to the plain FK)
+              and 1 epoch each of ``profile_epoch`` and ``profile_epoch
+              --video`` (each phase's seconds; B1 at 1024 poses 4 times,
+              as the main phase's first epoch; B1 at 4608 poses 10 times
+              and B2 once);
+13. data_parallel -- ``--data_parallel_devices`` and multi-process
               synthesis on the one card: (a) the main command with
               ``--data_parallel_devices 2`` must stop before any launch;
               (b) the main command in an NCCL group of one rank must train
@@ -101,7 +110,7 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               (c)-(e) sample the card's busy share with nvidia-smi; two
               ranks on one card compete for it, so their times are no
               scaling number;
-13. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
+14. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
               the main command with ``--model_parallel_devices 2`` must
               stop before any launch; (b) the full-width SGD witness of
               data_parallel on a model group of two gloo ranks sharing
@@ -122,7 +131,7 @@ Each run of phases 7-10 (but the poseformer's) is then run once more under
 torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
-after; a rank or process of phases 12-13 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
+after; a rank or process of phases 13-14 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
 ``nvidia-smi`` name/power-limit line, one ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -1075,6 +1084,125 @@ def phase_cli_extras(fk_cuda, trunk_cuda, device, main_ref: dict):
     return launches
 
 
+class B1Rows:
+    """Records the rows of every B1 launch made through
+    ``fk_cuda.fk_forward_cuda`` inside the block (the launch and its count
+    stay the wrapper's)."""
+
+    def __init__(self, fk_cuda):
+        self.fk_cuda, self.rows = fk_cuda, []
+
+    def __enter__(self):
+        launch = self.launch = self.fk_cuda.fk_forward_cuda
+
+        def recording(angles, *rest):
+            self.rows.append(int(angles.shape[0]))
+            return launch(angles, *rest)
+        self.fk_cuda.fk_forward_cuda = recording
+        return self.rows
+
+    def __exit__(self, *exc):
+        self.fk_cuda.fk_forward_cuda = self.launch
+
+
+def run_tool(fk_cuda, trunk_cuda, fn, argv):
+    """``fn(argv)`` with the counters set to 0 just before and read just
+    after: (result, seconds, launches, rows of each B1 launch)."""
+    with B1Rows(fk_cuda) as rows:
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        result = fn(argv)
+        seconds = time.perf_counter() - t0
+        launches = read_counts(fk_cuda, trunk_cuda)
+    return result, seconds, launches, sorted(set(rows))
+
+
+def phase_tools(fk_cuda, trunk_cuda, device) -> dict:
+    """The three tools through their ``main``, each on the card by default:
+    (a) ``visualize_fk --sweep 3``: its PNG, one B1 launch for the 8 swept
+    poses, within FWD_ATOL of the plain FK on the same inputs; (b)
+    ``make_fk_inspector``: the page, its 16 scatter rows and its 4 goldens
+    from one B1 launch within FWD_ATOL (plus the page's 6-decimal rounding)
+    of the plain FK; (c) ``profile_epoch``, 1 epoch of the README's
+    single-frame command: each phase's seconds, B1 at 1024 poses as in the
+    main phase's first epoch (4 critic phases; its first generator update
+    comes at global iteration 4, in epoch 1); (d) ``profile_epoch --video``,
+    1 epoch of the video command with the motion critics on: 9 critic
+    phases and the generator update at iteration 4, B1 at 512 x 9 = 4608
+    poses, B2 once."""
+    import re
+
+    import numpy as np
+    import torch
+    from dhaug_torch import make_fk_inspector, profile_epoch, visualize_fk
+    from dhaug_torch.ops import fk as fk_plain
+
+    out_dir = REPO / "_runs" / "chip_smoke_tools"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches = {}
+
+    def plain_max_err(got, angles, bone_len, global_rot):
+        rows = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device).expand(
+            len(angles), -1).contiguous()
+        with torch.no_grad():
+            want = fk_plain.fk_world_pose_16(rows(angles), rows(bone_len), rows(global_rot),
+                                             torch.zeros(len(angles), 3, device=device))
+        return float(np.abs(np.asarray(got) - want.cpu().numpy()).max())
+
+    result, seconds, launches["visualize_fk"], rows = run_tool(
+        fk_cuda, trunk_cuda, visualize_fk.main, ["--sweep", "3", "--out", str(out_dir / "knee.png")])
+    png = Path(result["path"])
+    err = plain_max_err(result["poses"], result["angles"], fk_plain.CANONICAL_BONE_LEN,
+                        [0.0, 0.0, 0.0])
+    emit({"phase": "tools", "tool": "visualize_fk", "seconds": seconds,
+          "poses": len(result["angles"]), "sweep_range_deg": result["sweep_range"],
+          "png_bytes": png.stat().st_size if png.is_file() else 0,
+          "launches": launches["visualize_fk"], "b1_rows": rows, "max_abs_err_m": err})
+    if not (png.is_file() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"):
+        raise AssertionError(f"visualize_fk wrote no PNG at {png}")
+    if launches["visualize_fk"] != {"fwd": 1, "bwd": 0, "trunk": 0} or not err <= FWD_ATOL:
+        raise AssertionError(f"visualize_fk: launches {launches['visualize_fk']}, err {err}")
+
+    result, seconds, launches["inspector"], rows = run_tool(
+        fk_cuda, trunk_cuda, make_fk_inspector.main,
+        ["--out", str(out_dir / "fk_inspector.html")])
+    html = Path(result["path"]).read_text()
+    spec = json.loads(re.search(r"const SPEC = (\{.*?\});\n", html, re.S).group(1))
+    goldens = spec["goldens"]
+    err = plain_max_err([g["pose"] for g in goldens], [g["angles"] for g in goldens],
+                        [g["bone_len"] for g in goldens], [g["global_rot"] for g in goldens])
+    emit({"phase": "tools", "tool": "make_fk_inspector", "seconds": seconds,
+          "page_bytes": Path(result["path"]).stat().st_size, "goldens": len(goldens), "scatter16": len(spec["scatter16"]),
+          "launches": launches["inspector"], "b1_rows": rows, "max_abs_err_m": err})
+    if not ("<canvas" in html and "selfTest" in html and len(spec["scatter16"]) == 16
+            and len(goldens) == 4):
+        raise AssertionError("make_fk_inspector: the page lacks its viewer, scatter or goldens")
+    if launches["inspector"] != {"fwd": 1, "bwd": 0, "trunk": 0} or \
+            not err <= FWD_ATOL + 5e-7:
+        raise AssertionError(f"make_fk_inspector: launches {launches['inspector']}, err {err}")
+
+    for video, key, want, want_rows in (
+            (False, "profile_epoch", {"fwd": 4, "bwd": 0, "trunk": 0}, [1024]),
+            (True, "profile_epoch_video", {"fwd": 9 + 1, "bwd": 1, "trunk": 0}, [4608])):
+        argv = ["--epochs", "1", "--data_root", str(REPO)] + (["--video"] if video else [])
+        result, seconds, launches[key], rows = run_tool(fk_cuda, trunk_cuda,
+                                                        profile_epoch.main, argv)
+        phases = result["phases"]
+        emit({"phase": "tools", "tool": key, "seconds": seconds,
+              "phase_seconds": dict(phases), "launches": launches[key], "b1_rows": rows,
+              "printed_launches": result["launches"]})
+        names = [name for name, _ in phases]
+        expected = ["video data prep", *profile_epoch.VIDEO_PHASES] if video else \
+            ["data prep", *profile_epoch.SINGLE_FRAME_PHASES]
+        if names != expected or not all(math.isfinite(t) and t >= 0 for _, t in phases):
+            raise AssertionError(f"{key}: phases {phases}")
+        if launches[key] != want or rows != want_rows or \
+                result["launches"] != {k: want[k] for k in ("fwd", "bwd")}:
+            raise AssertionError(f"{key}: launches {launches[key]} at rows {rows}, "
+                                 f"expected {want} at {want_rows}")
+    return launches
+
+
 def same_tree(a, b) -> bool:
     """Equal trees: the same containers and keys, tensors equal in dtype
     and bits, every other leaf of the same type and value."""
@@ -2014,6 +2142,9 @@ def main() -> int:
     video_launches, video_ref = phase_video(fk_cuda, trunk_cuda)
     extras_launches = phase_cli_extras(fk_cuda, trunk_cuda, device, main_ref)
     t0 = time.perf_counter()
+    tools_launches = phase_tools(fk_cuda, trunk_cuda, device)
+    emit({"phase": "tools", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     dp_launches = phase_data_parallel(fk_cuda, trunk_cuda, main_ref, video_ref, synth_ref)
     emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -2022,7 +2153,7 @@ def main() -> int:
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
              **augment_launches, "baseline": baseline_launches, **video_launches,
-             **extras_launches, **dp_launches, **tp_launches}
+             **extras_launches, **tools_launches, **dp_launches, **tp_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 

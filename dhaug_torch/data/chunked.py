@@ -1,5 +1,5 @@
-"""Frame-centred window samplers for video mode: a numpy copy of
-``dhaug_tpu/data/chunked.py``.
+"""Frame-centred window samplers for video mode: a copy of
+``dhaug_tpu/data/chunked.py``, numpy on the host and torch on the device.
 
 * ``ChunkWindows`` <- ChunkedGenerator (video_mode_operate.py:193) and
   GAN_video_ChunkedGenerator (:35), which the reference uses with
@@ -7,7 +7,8 @@
   the single centre frame or the full +-pad window (:149-162).  Each
   sequence is edge-padded once and all of them concatenate into one array,
   so a batch of windows is one index gather (the training loops gather on
-  the device from ``big2d``/``big3d`` and the index arrays).
+  the device from ``device_arrays`` and the index arrays; ``device_epoch``
+  yields such batches).
 * ``UnchunkedSequences`` <- UnchunkedGenerator (:350): whole-sequence
   evaluation batches with symmetric edge padding of the 2D input.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class ChunkWindows:
@@ -108,6 +110,38 @@ class ChunkWindows:
         stop = self.num_batches * self.batch_size if self.drop_last else self.n_chunks
         for s in range(0, stop, self.batch_size):
             yield self.gather(order[s:s + self.batch_size])
+
+    def device_arrays(self, device):
+        """(big2d, big3d, cams) as tensors on ``device`` (cams None without
+        camera records), uploaded once and kept on the sampler."""
+        device = torch.empty(0, device=device).device   # 'cuda' -> 'cuda:0'
+        cached = getattr(self, "_device_arrays", None)
+        if cached is None or cached[0].device != device:
+            cached = tuple(None if a is None else torch.as_tensor(a, device=device)
+                           for a in (self.big2d, self.big3d, self.cams))
+            self._device_arrays = cached
+        return cached
+
+    def device_epoch(self, device):
+        """:meth:`next_epoch` on the device: the same (cam, w3d, w2d)
+        batches as tensors gathered from :meth:`device_arrays`, the last
+        partial batch always dropped."""
+        big2d, big3d, cams = self.device_arrays(device)
+        device = big2d.device
+        order = self.rng.permutation(self.n_chunks) if self.shuffle \
+            else np.arange(self.n_chunks)
+        n_full = self.n_chunks // self.batch_size
+        sel = order[: n_full * self.batch_size].reshape(n_full, self.batch_size)
+        rows = lambda a: torch.as_tensor(a[sel], device=device)
+        start2d = rows(self.start2d)
+        start3d = rows(self.start3d if self.full_3d_window else self.idx3d)
+        sel = torch.as_tensor(sel, device=device)
+        win = torch.arange(self.window, device=device)[None]
+        for b in range(n_full):
+            w2d = big2d[start2d[b][:, None] + win]
+            w3d = big3d[start3d[b][:, None] + win] if self.full_3d_window \
+                else big3d[start3d[b]][:, None]
+            yield None if cams is None else cams[sel[b]], w3d, w2d
 
 
 class UnchunkedSequences:

@@ -50,6 +50,9 @@ h36m_skeleton = Skeleton(
     joints_right=[1, 2, 3, 4, 5, 24, 25, 26, 27, 28, 29, 30, 31],
 )
 
+h36m_skeleton_joints_group = [[2, 3], [5, 6], [1, 4], [0, 7], [8, 9],
+                              [14, 15], [11, 12], [10, 13]]
+
 h36m_cameras_intrinsic_params = [
     {
         "id": "54138969",
@@ -239,6 +242,7 @@ class Human36mDataset(MocapDataset):
             # Rewire shoulders to the thorax (16-joint index 8).
             self._skeleton._parents[10] = 8
             self._skeleton._parents[13] = 8
+            self._skeleton._joints_group = h36m_skeleton_joints_group
 
     def define_actions(self, action=None):
         if action is None:

@@ -1,15 +1,16 @@
 """Host-side data pipeline: npz ingestion, flattening, frame-level containers.
 
-A numpy copy of what the training paths use from
-``dhaug_tpu/data/loaders.py`` (read_3d_data, create_2d_data, fetch and the
-PoseDataset / PoseBuffer / PoseTarget containers).  The training loops move
-the concatenated arrays to the device once and batch them there with index
-gathers.
+A numpy copy of ``dhaug_tpu/data/loaders.py`` (read_3d_data,
+create_2d_data, fetch, the PoseDataset / PoseBuffer / PoseTarget /
+PoseTarget2D / CmuPoseTarget containers with their epoch samplers, and
+``pad_to_batch``).  The
+training loops move the concatenated arrays to the device once and batch
+them there with index gathers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Iterator, List, Sequence
 
 import numpy as np
 
@@ -141,6 +142,17 @@ def fetch(subjects, dataset, keypoints, action_filter=None, stride: int = 1,
 # frame-level containers
 # ---------------------------------------------------------------------------
 
+def _batch_indices(rng: np.random.Generator, n: int, batch_size: int,
+                   shuffle: bool = True, drop_last: bool = True) -> Iterator[np.ndarray]:
+    """Row indices of each batch of an epoch over n rows: one
+    ``rng.permutation`` when shuffling, the last partial batch dropped
+    with ``drop_last``."""
+    idx = rng.permutation(n) if shuffle else np.arange(n)
+    stop = n - (n % batch_size) if drop_last else n
+    for s in range(0, stop, batch_size):
+        yield idx[s:s + batch_size]
+
+
 @dataclass
 class PoseDataset:
     """Concatenated (3D, 2D, cam) frames (PoseDataSet,
@@ -162,6 +174,15 @@ class PoseDataset:
     def __len__(self):
         return self.poses_3d.shape[0]
 
+    def batches(self, rng: np.random.Generator, batch_size: int,
+                shuffle: bool = True, drop_last: bool = True) -> Iterator[tuple]:
+        for sel in _batch_indices(rng, len(self), batch_size, shuffle, drop_last):
+            yield self.poses_3d[sel], self.poses_2d[sel], self.cams[sel]
+
+    def num_batches(self, batch_size: int, drop_last: bool = True) -> int:
+        n = len(self)
+        return n // batch_size if drop_last else -(-n // batch_size)
+
 
 @dataclass
 class PoseBuffer:
@@ -181,6 +202,11 @@ class PoseBuffer:
     def __len__(self):
         return self.poses_3d.shape[0]
 
+    def batches(self, batch_size: int) -> Iterator[tuple]:
+        """In order, the last batch partial."""
+        for s in range(0, len(self), batch_size):
+            yield self.poses_3d[s:s + batch_size], self.poses_2d[s:s + batch_size]
+
 
 @dataclass
 class PoseTarget:
@@ -188,5 +214,66 @@ class PoseTarget:
 
     poses: Any
 
+    @classmethod
+    def from_lists(cls, poses):
+        return cls(np.concatenate([np.asarray(p, np.float32) for p in poses]))
+
     def __len__(self):
         return self.poses.shape[0]
+
+    def batches(self, rng: np.random.Generator, batch_size: int,
+                shuffle: bool = True, drop_last: bool = True) -> Iterator[Any]:
+        for sel in _batch_indices(rng, len(self), batch_size, shuffle, drop_last):
+            yield self.poses[sel]
+
+
+@dataclass
+class PoseTarget2D:
+    """2D targets and a confidence-mask channel (PoseTarget2D,
+    common/data_loader.py:92)."""
+
+    poses_2d: np.ndarray
+
+    @classmethod
+    def from_lists(cls, poses_2d):
+        return cls(np.concatenate([np.asarray(p, np.float32) for p in poses_2d]))
+
+    def __len__(self):
+        return self.poses_2d.shape[0]
+
+    def batches(self, rng: np.random.Generator, batch_size: int,
+                shuffle: bool = True, drop_last: bool = True) -> Iterator[tuple]:
+        """(poses_2d, mask) batches, the mask all ones (B, 16, 1)."""
+        mask = np.ones((batch_size, self.poses_2d.shape[1], 1), np.float32)
+        for sel in _batch_indices(rng, len(self), batch_size, shuffle, drop_last):
+            yield self.poses_2d[sel], mask[: len(sel)]
+
+
+@dataclass
+class CmuPoseTarget:
+    """(3D, 2D, camera) sampler whose cameras cycle independently of the
+    poses (CmuDatasetPoseTarget, common/data_loader.py:109-129)."""
+
+    poses_3d: np.ndarray
+    poses_2d: np.ndarray
+    cams: np.ndarray
+
+    def __len__(self):
+        return len(self.poses_3d)
+
+    def batches(self, rng: np.random.Generator, batch_size: int,
+                drop_last: bool = True) -> Iterator[tuple]:
+        n_cams = self.cams.shape[0]
+        for sel in _batch_indices(rng, len(self), batch_size, drop_last=drop_last):
+            yield (self.poses_3d[sel], self.poses_2d[sel],
+                   self.cams[sel % max(n_cams - 1, 1)])
+
+
+def pad_to_batch(arrays: List[np.ndarray], batch_size: int):
+    """Edge-pad the leading axis of each array to a multiple of
+    ``batch_size``; returns (padded arrays, count of real rows)."""
+    n = arrays[0].shape[0]
+    pad = (-n) % batch_size
+    if pad == 0:
+        return arrays, n
+    return [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0) for a in arrays], n

@@ -1,8 +1,8 @@
 """Parent-array skeleton model and the mocap dataset base (plain numpy).
 
-Copy of the host-side metadata the single-frame pipeline needs: a skeleton
-with joint removal and parent rewiring, and the per-subject/action container
-the H36M loader fills.
+Copy of ``dhaug_tpu/data/skeleton.py``: a skeleton with joint removal and
+parent rewiring, its left/right/group and children metadata, and the
+per-subject/action container the H36M loader fills.
 """
 from __future__ import annotations
 
@@ -16,12 +16,29 @@ class Skeleton:
         self._parents = np.array(parents)
         self._joints_left = list(joints_left)
         self._joints_right = list(joints_right)
+        self._joints_group = None
+        self._compute_metadata()
 
     def num_joints(self) -> int:
         return len(self._parents)
 
     def parents(self) -> np.ndarray:
         return self._parents
+
+    def has_children(self) -> np.ndarray:
+        return self._has_children
+
+    def children(self):
+        return self._children
+
+    def joints_left(self):
+        return self._joints_left
+
+    def joints_right(self):
+        return self._joints_right
+
+    def joints_group(self):
+        return self._joints_group
 
     def remove_joints(self, joints_to_remove, dataset=None):
         """Remove joints, rewiring children to the removed joint's parent,
@@ -55,7 +72,16 @@ class Skeleton:
                     s = dataset[subject][action]
                     s["positions"] = s["positions"][:, valid_joints]
 
+        self._compute_metadata()
         return valid_joints
+
+    def _compute_metadata(self):
+        self._has_children = np.zeros(len(self._parents), dtype=bool)
+        self._children = [[] for _ in self._parents]
+        for i, parent in enumerate(self._parents):
+            if parent != -1:
+                self._has_children[parent] = True
+                self._children[parent].append(i)
 
 
 class MocapDataset:
@@ -75,6 +101,9 @@ class MocapDataset:
 
     def subjects(self):
         return self._data.keys()
+
+    def fps(self):
+        return self._fps
 
     def skeleton(self) -> Skeleton:
         return self._skeleton

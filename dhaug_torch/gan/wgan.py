@@ -12,7 +12,10 @@ Port of ``dhaug_tpu/gan/wgan.py:45-327`` (the video mode's steps, which use
   (``critics_step``: bone harvest, cam->world, fakes made without gradient,
   flip duplicates averaged, one random camera projecting the whole fake
   batch) and the every-5th generator update (``generator_step``, whose
-  flipped branches are detached as in the reference).
+  flipped branches are detached as in the reference);
+* :func:`gradient_penalty` (the penalty alone, on the interpolates),
+  :func:`tiled_cam16` and :func:`discriminator_accuracy`, which no training
+  path calls.
 
 Random draws come from an explicit ``torch.Generator``; every draw can also
 be injected (``noise``, ``scaler8``, ``cam_idx``, ``alphas``) so tests feed
@@ -68,6 +71,41 @@ def camera_bank(train_subjects, device=None):
             intrs.append(cam["intrinsic"])
     return tuple(torch.as_tensor(np.stack(x), dtype=torch.float32, device=device)
                  for x in (quats, trans, intrs))
+
+
+def tiled_cam16(intr, quat, trans, n: int, device=None) -> torch.Tensor:
+    """(n, 16) camera records, intrinsic(9) | quat(4) | t(3) of one camera
+    tiled n times: the ``cam16`` layout ``critics_step`` takes."""
+    rec = torch.cat([torch.as_tensor(x, dtype=torch.float32, device=device).reshape(-1)
+                     for x in (intr, quat, trans)])
+    return rec.expand(n, 16).contiguous()
+
+
+def discriminator_accuracy(prediction, label) -> float:
+    """Fraction of critic outputs within 0.5 of the label (the reference's
+    accuracy probe, utils/gan_utils.py:141-155)."""
+    host = lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return float(np.mean(np.abs(host(prediction) - host(label)) <= 0.5))
+
+
+def gradient_penalty(critic: torch.nn.Module, real: torch.Tensor, fake: torch.Tensor,
+                     lambda_gp: float, generator: Optional[torch.Generator] = None,
+                     alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """WGAN-GP on uniform interpolates, each sample flattened: the critic
+    alone on the interpolates (the three-pass composition that
+    :func:`critic_step` stacks into one forward).  ``alpha`` (B, 1)
+    overrides the draw from ``generator``.  Differentiable in the critic's
+    parameters."""
+    B = real.shape[0]
+    r = real.reshape(B, -1)
+    f = fake.reshape(B, -1)
+    if alpha is None:
+        alpha = torch.rand((B, 1), generator=generator, device=r.device, dtype=r.dtype)
+    interp = (alpha * r + (1.0 - alpha) * f).requires_grad_(True)
+    (g,) = torch.autograd.grad(critic(interp.reshape(real.shape)).sum(), interp,
+                               create_graph=True)
+    norms = torch.sqrt(torch.sum(g ** 2, dim=1) + 1e-12)
+    return torch.mean((norms - 1.0) ** 2) * lambda_gp
 
 
 def _step(opt: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:

@@ -1,6 +1,6 @@
 """Bone-vector algebra, the bone-length re-skin, and KCS critic features.
 
-Port of what the training paths use from ``dhaug_tpu/ops/bones.py``.
+Port of ``dhaug_tpu/ops/bones.py``.
 Two bone orderings coexist, as in the reference: the FK order (what the
 generator harvests and the critics see) and the H36M kinematic-tree order
 (what the re-skin templates are written in).  Each (16, 15) incidence matrix
@@ -42,6 +42,12 @@ for _j in range(1, 16):
         _C_TREE_INV[_bone_of_child[_node], _j] = 1.0
         _node = _parent_of[_node]
 
+# 9 mirrored bone-ratio groups -> 15 bones (utils/gan_utils.py:14-30):
+# legs and arms share a ratio between left and right.
+_BLR_9_TO_15 = np.zeros((9, 15), dtype=np.float32)
+for _bone, _group in enumerate([0, 1, 2, 0, 1, 2, 3, 4, 5, 6, 7, 8, 6, 7, 8]):
+    _BLR_9_TO_15[_group, _bone] = 1.0
+
 # Adjacent-bone pairs (FK bone indices) whose cosines feed the 3D critic
 # (Fk_discriminator.py:81-140).
 _KCS_PAIRS = (
@@ -81,13 +87,26 @@ def bone_lengths_fk(pose16: torch.Tensor) -> torch.Tensor:
     return bone_lengths(bone_vectors_fk(pose16))
 
 
+def bone_unit_vectors_tree(pose16: torch.Tensor) -> torch.Tensor:
+    """(..., 16, 3) -> (..., 15, 3) unit bone directions in tree order."""
+    vecs = bone_vectors_tree(pose16)
+    return vecs / bone_lengths(vecs)[..., None]
+
+
 def reskin_pose(pose16: torch.Tensor, new_lengths_tree: torch.Tensor) -> torch.Tensor:
     """Replace the bone lengths with ``new_lengths_tree`` (tree order,
     (..., 15)), keeping bone directions and the root position."""
     root = pose16[..., :1, :]
-    vecs = bone_vectors_tree(pose16 - root)
-    unit = vecs / bone_lengths(vecs)[..., None]
+    unit = bone_unit_vectors_tree(pose16 - root)
     return pose_from_bone_vectors_tree(unit * new_lengths_tree[..., None]) + root
+
+
+def blaugment9to15(pose16: torch.Tensor, bl: torch.Tensor, blr9: torch.Tensor) -> torch.Tensor:
+    """Apply 9 mirrored bone-length ratios to a pose (utils/gan_utils.py:7-52):
+    bl (..., 15) base lengths in tree order, blr9 (..., 9) ratios; each new
+    length is bl * (1 + ratio)."""
+    blr15 = torch.einsum("gb,...g->...b", _const(_BLR_9_TO_15, blr9), blr9)
+    return reskin_pose(pose16, bl * (1.0 + blr15))
 
 
 def kcs_features(pose16: torch.Tensor, with_lengths: bool = True) -> torch.Tensor:

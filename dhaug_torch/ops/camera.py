@@ -1,14 +1,28 @@
-"""Camera model: world<->camera and the H36M projection, on tensors.
+"""Camera model: screen normalization, world<->camera and the H36M
+projection, on tensors.
 
-Port of the parts of ``dhaug_tpu/ops/camera.py`` the single-frame path uses.
-2D coordinates live in the reference's aspect-preserving normalized screen
-space [-1, 1] x [-h/w, h/w].
+Port of ``dhaug_tpu/ops/camera.py``.  2D coordinates live in the
+reference's aspect-preserving normalized screen space [-1, 1] x [-h/w, h/w].
 """
 from __future__ import annotations
 
 import torch
 
 from dhaug_torch.ops.quaternion import qinverse, qrot
+
+
+def normalize_screen_coordinates(points: torch.Tensor, w: float, h: float) -> torch.Tensor:
+    """Pixel coords -> normalized coords in [-1, 1] x [-h/w, h/w].  (..., 2)."""
+    x = points[..., 0] / w * 2.0 - 1.0
+    y = points[..., 1] / w * 2.0 - h / w
+    return torch.stack([x, y], dim=-1)
+
+
+def image_coordinates(points: torch.Tensor, w: float, h: float) -> torch.Tensor:
+    """Inverse of :func:`normalize_screen_coordinates`.  (..., 2)."""
+    x = (points[..., 0] + 1.0) * w / 2.0
+    y = (points[..., 1] + h / w) * w / 2.0
+    return torch.stack([x, y], dim=-1)
 
 
 def world_to_camera(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -72,3 +86,12 @@ def project_to_2d(X: torch.Tensor, camera_params: torch.Tensor) -> torch.Tensor:
     tan = torch.sum(p * XX, dim=-1, keepdim=True)
     XXX = XX * (radial + tan) + p * r2
     return f * XXX + c
+
+
+def project_to_2d_linear(X: torch.Tensor, camera_params: torch.Tensor) -> torch.Tensor:
+    """Pinhole-only projection (focal length + principal point), the divide
+    clamped to [-1, 1] as in :func:`project_to_2d`."""
+    params = camera_params[..., :9]
+    while params.ndim < X.ndim:
+        params = params[:, None]
+    return params[..., :2] * clip_unit(X[..., :2] / X[..., 2:]) + params[..., 2:4]

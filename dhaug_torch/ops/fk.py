@@ -23,18 +23,50 @@ import math
 
 import torch
 
+# Link tables in degrees and canonical metres
+# (forward_kinematics_DH_model.py:234-261).
 RIGHT_LEG_ALPHA = (0.0, -90.0, -90.0, 0.0, 0.0)
+RIGHT_LEG_A = (0.25, 0.0, 0.0, 0.6, 0.5)
+RIGHT_LEG_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 RIGHT_LEG_THETA = (0.0, -90.0, 180.0, 0.0, 0.0)
 LEFT_LEG_ALPHA = (0.0, 90.0, 90.0, 0.0, 0.0)
+LEFT_LEG_A = (-0.25, 0.0, 0.0, 0.6, 0.5)
+LEFT_LEG_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 LEFT_LEG_THETA = (180.0, -90.0, 0.0, 0.0, 0.0)
 BODY_ALPHA = (0.0, -90.0, -90.0, -90.0, -90.0, -90.0, -90.0,
               -90.0, -90.0, -90.0, -90.0, -90.0, 90.0)
+BODY_A = (0.0,) * 12 + (0.15,)
+BODY_D = (0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.2, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 BODY_THETA = (90.0, -90.0, -90.0, -90.0, -90.0, -90.0, -90.0,
               -90.0, -90.0, -90.0, -90.0, 0.0, 0.0)
 RIGHT_HAND_ALPHA = (-90.0, -90.0, -90.0, 0.0, 0.0)
+RIGHT_HAND_A = (-0.3, 0.0, 0.0, 0.4, 0.35)
+RIGHT_HAND_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 RIGHT_HAND_THETA = (-180.0, -90.0, 180.0, 0.0, 0.0)
 LEFT_HAND_ALPHA = (-90.0, 90.0, 90.0, 0.0, 0.0)
+LEFT_HAND_A = (0.3, 0.0, 0.0, 0.4, 0.35)
+LEFT_HAND_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 LEFT_HAND_THETA = (0.0, -90.0, 0.0, 0.0, 0.0)
+
+# chain -> (alpha, a, d, theta, slice of the 33 packed angles)
+CHAINS = {
+    "right_leg": (RIGHT_LEG_ALPHA, RIGHT_LEG_A, RIGHT_LEG_D, RIGHT_LEG_THETA, (0, 5)),
+    "left_leg": (LEFT_LEG_ALPHA, LEFT_LEG_A, LEFT_LEG_D, LEFT_LEG_THETA, (5, 10)),
+    "body": (BODY_ALPHA, BODY_A, BODY_D, BODY_THETA, (10, 23)),
+    "right_hand": (RIGHT_HAND_ALPHA, RIGHT_HAND_A, RIGHT_HAND_D, RIGHT_HAND_THETA, (23, 28)),
+    "left_hand": (LEFT_HAND_ALPHA, LEFT_HAND_A, LEFT_HAND_D, LEFT_HAND_THETA, (28, 33)),
+}
+
+# The 15 bone lengths (FK order) rewrite these a/d entries, every other
+# entry of a chain's a and d being 0 (forward_kinematics_DH_model.py:571-589):
+# chain -> ((param, link, bone, sign), ...)
+BONE_REWRITES = {
+    "right_leg": (("a", 0, 5, 1), ("a", 3, 3, 1), ("a", 4, 1, 1)),
+    "left_leg": (("a", 0, 4, -1), ("a", 3, 2, 1), ("a", 4, 0, 1)),
+    "body": (("a", 12, 14, 1), ("d", 3, 6, 1), ("d", 6, 7, 1)),
+    "right_hand": (("a", 0, 9, -1), ("a", 3, 11, 1), ("a", 4, 13, 1)),
+    "left_hand": (("a", 0, 8, 1), ("a", 3, 10, 1), ("a", 4, 12, 1)),
+}
 
 # 15 bones in FK order: pairs of 16-joint indices
 # (forward_kinematics_DH_model.py:46-49).
@@ -43,6 +75,12 @@ USED_16KEY_15BONE_TABLE = (
     (0, 4), (0, 1), (0, 7), (7, 8), (8, 10), (8, 13),
     (10, 11), (13, 14), (11, 12), (14, 15),
     (8, 9),
+)
+BONE_NAMES = (
+    "left_small_leg", "right_small_leg", "left_big_leg", "right_big_leg",
+    "left_hip", "right_hip", "waist", "thorax", "left_shoulder",
+    "right_shoulder", "left_big_arm", "right_big_arm", "left_small_arm",
+    "right_small_arm", "neck",
 )
 # Canonical bone lengths of init_Fk_DH_angle.
 CANONICAL_BONE_LEN = (0.5, 0.5, 0.6, 0.6, 0.25, 0.25, 0.25, 0.2,
@@ -123,29 +161,20 @@ def fk_world_pose(angles: torch.Tensor, bone_len: torch.Tensor,
     angles (..., 33) degrees, bone_len (..., 15) metres in FK bone order,
     global_rot (..., 3) XYZ Euler degrees, root (..., 3) metres.
     """
-    bl = bone_len
-    (l_small_leg, r_small_leg, l_big_leg, r_big_leg, l_hip, r_hip, waist,
-     thorax, l_shoulder, r_shoulder, l_big_arm, r_big_arm, l_small_arm,
-     r_small_arm, neck) = [bl[..., i] for i in range(15)]
-    z5 = [0.0] * 5
+    def walk(name, start_R=None, start_p=None):
+        alphas, _, _, thetas, (lo, hi) = CHAINS[name]
+        a, d = [0.0] * len(alphas), [0.0] * len(alphas)
+        for param, link, bone, sign in BONE_REWRITES[name]:
+            (a if param == "a" else d)[link] = bone_len[..., bone] if sign > 0 \
+                else -bone_len[..., bone]
+        return _run_chain(alphas, a, d, thetas, angles[..., lo:hi], start_R, start_p)
 
-    rl_pos, _ = _run_chain(RIGHT_LEG_ALPHA, [r_hip, 0.0, 0.0, r_big_leg, r_small_leg],
-                           z5, RIGHT_LEG_THETA, angles[..., 0:5])
-    ll_pos, _ = _run_chain(LEFT_LEG_ALPHA, [-l_hip, 0.0, 0.0, l_big_leg, l_small_leg],
-                           z5, LEFT_LEG_THETA, angles[..., 5:10])
-    body_pos, body_rot = _run_chain(
-        BODY_ALPHA, [0.0] * 12 + [neck],
-        [0.0, 0.0, 0.0, waist, 0.0, 0.0, thorax] + [0.0] * 6,
-        BODY_THETA, angles[..., 10:23])
+    rl_pos, _ = walk("right_leg")
+    ll_pos, _ = walk("left_leg")
+    body_pos, body_rot = walk("body")
     # the arm chains continue from body link 8's cumulative (R, p)
-    rh_pos, _ = _run_chain(RIGHT_HAND_ALPHA,
-                           [-r_shoulder, 0.0, 0.0, r_big_arm, r_small_arm], z5,
-                           RIGHT_HAND_THETA, angles[..., 23:28],
-                           start_R=body_rot[8], start_p=body_pos[8])
-    lh_pos, _ = _run_chain(LEFT_HAND_ALPHA,
-                           [l_shoulder, 0.0, 0.0, l_big_arm, l_small_arm], z5,
-                           LEFT_HAND_THETA, angles[..., 28:33],
-                           start_R=body_rot[8], start_p=body_pos[8])
+    rh_pos, _ = walk("right_hand", body_rot[8], body_pos[8])
+    lh_pos, _ = walk("left_hand", body_rot[8], body_pos[8])
     chains = {"right_leg": rl_pos, "left_leg": ll_pos, "body": body_pos,
               "right_hand": {9 + i: p for i, p in enumerate(rh_pos)},
               "left_hand": {9 + i: p for i, p in enumerate(lh_pos)}}
@@ -169,3 +198,12 @@ def fk_world_pose(angles: torch.Tensor, bone_len: torch.Tensor,
 def fk_world_pose_16(angles, bone_len, global_rot, root) -> torch.Tensor:
     """The plain 16-joint FK: (B, 33), (B, 15), (B, 3), (B, 3) -> (B, 16, 3)."""
     return fk_world_pose(angles, bone_len, global_rot, root, n_joints=16)
+
+
+def init_fk_dh_angle(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The zero-angle pose with the canonical bone lengths, (32, 3): the
+    golden fixture of init_Fk_DH_angle (forward_kinematics_DH_model.py:824-858)."""
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    return fk_world_pose(zeros(N_CHAIN_ANGLES),
+                         torch.tensor(CANONICAL_BONE_LEN, dtype=dtype, device=device),
+                         zeros(3), zeros(3))

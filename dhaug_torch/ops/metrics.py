@@ -1,7 +1,8 @@
-"""Pose metrics: MPJPE, Procrustes-aligned MPJPE (P-MPJPE), scale-normalized
-MPJPE, velocity error, PCK and AUC.
+"""Pose metrics: MPJPE (whole, by joint, weighted), Procrustes-aligned MPJPE
+(P-MPJPE), scale-normalized MPJPE, velocity error, PCK and AUC, and the two
+rectified L2 losses.
 
-Port of ``dhaug_tpu/ops/metrics.py:17-97``.  Metres in, metres out (callers
+Port of ``dhaug_tpu/ops/metrics.py``.  Metres in, metres out (callers
 scale to mm); PCK and AUC take metres and return percent, at the 3DHP
 protocol's 150 mm and 31 thresholds in [0, 150] mm.  P-MPJPE uses a batched
 SVD of the (N, 3, 3) cross-covariances.
@@ -14,6 +15,17 @@ import torch
 def mpjpe(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean per-joint position error ("Protocol #1")."""
     return torch.mean(torch.linalg.vector_norm(predicted - target, dim=-1))
+
+
+def mpjpe_by_joint(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MPJPE of each joint, averaged over the first axis."""
+    return torch.mean(torch.linalg.vector_norm(predicted - target, dim=-1), dim=0)
+
+
+def weighted_mpjpe(predicted: torch.Tensor, target: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """MPJPE with each joint error multiplied by ``w`` (broadcast)."""
+    return torch.mean(w * torch.linalg.vector_norm(predicted - target, dim=-1))
 
 
 def p_mpjpe_per_sample(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -79,3 +91,15 @@ def compute_auc(gts: torch.Tensor, preds: torch.Tensor, scale: float = 1000.0) -
     thresholds = torch.linspace(0.0, 150.0, 31, dtype=err.dtype, device=err.device)
     # every threshold's PCK averages the same joints: one mean over both
     return torch.mean((err.reshape(-1, 1) < thresholds).float()) * 100.0
+
+
+def diff_range_loss(a: torch.Tensor, b: torch.Tensor, std) -> torch.Tensor:
+    """Rectified L2 on (a - b): zero inside +-std, the squared error outside."""
+    diff = (a - b) ** 2
+    return torch.mean(diff * (diff > std ** 2).to(diff.dtype))
+
+
+def rectified_l2_loss(gamma: torch.Tensor, threshold) -> torch.Tensor:
+    """gamma squared where |gamma| exceeds ``threshold``, else 0, averaged."""
+    diff = gamma ** 2
+    return torch.mean(diff * (diff > threshold ** 2).to(diff.dtype))

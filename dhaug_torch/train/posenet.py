@@ -138,7 +138,7 @@ def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_s
         return float("nan")
     device = next(model.parameters()).device
     order = np_rng.permutation(n)[: n_batches * batch_size]
-    big2d, big3d = device_windows(loader, device)
+    big2d, big3d, _ = loader.device_arrays(device)
     dp = mesh.current()
     start2d = torch.as_tensor(loader.start2d[order].reshape(n_batches, batch_size),
                               device=device)
@@ -149,18 +149,6 @@ def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_s
                           playback)
               for s2, i3 in zip(dp.rows(start2d.T).T, dp.rows(idx3d.T).T)]
     return float(dp.mean(torch.stack(losses).mean()))
-
-
-def device_windows(loader, device):
-    """A ChunkWindows' padded 2D and 3D concatenations on ``device``,
-    uploaded once and kept on the loader."""
-    device = torch.empty(0, device=device).device   # 'cuda' -> 'cuda:0'
-    cached = getattr(loader, "_device_windows", None)
-    if cached is None or cached[0].device != device:
-        cached = (torch.as_tensor(loader.big2d, device=device),
-                  torch.as_tensor(loader.big3d, device=device))
-        loader._device_windows = cached
-    return cached
 
 
 def _per_sample_metrics(outputs_3d, targets_3d):

@@ -1,4 +1,5 @@
-"""Optimizer constructors, gradient clipping and learning-rate schedules.
+"""Optimizer constructors, gradient clipping and learning-rate schedules
+(the functional ones and :class:`PlateauScheduler`).
 
 Port of ``dhaug_tpu/train/state.py``.  Each net keeps its own
 ``torch.optim`` optimizer; a learning-rate change rewrites the optimizer's
@@ -58,6 +59,12 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def current_learning_rate(optimizer: torch.optim.Optimizer) -> float:
+    """The learning rate :func:`set_learning_rate` last wrote (the first
+    param group's)."""
+    return float(optimizer.param_groups[0]["lr"])
+
+
 def lambda_lr(base_lr: float, epoch: int, nepoch: int, nepoch_fix: int = 0) -> float:
     """The reference's LambdaLR linear decay (utils/utils.py:174-178):
     lr = base * (1 - max(0, epoch - fix) / (nepoch - fix + 1))."""
@@ -73,3 +80,29 @@ def step_exp_lr(base_lr: float, step: int, decay_step: int, gamma: float) -> flo
 def step_lr(base_lr: float, epoch: int, decay_step: int, gamma: float = 0.1) -> float:
     """StepLR (utils/utils.py:179-181): lr = base * gamma ** (epoch // decay_step)."""
     return base_lr * gamma ** (epoch // decay_step)
+
+
+class PlateauScheduler:
+    """ReduceLROnPlateau policy of get_scheduler (utils/utils.py:182-184):
+    multiply lr by ``factor`` after ``patience`` epochs without the monitored
+    metric improving by more than ``threshold`` (relative)."""
+
+    def __init__(self, base_lr: float, factor: float = 0.2,
+                 threshold: float = 0.01, patience: int = 5):
+        self.lr = base_lr
+        self.factor = factor
+        self.threshold = threshold
+        self.patience = patience
+        self.best = float("inf")
+        self.bad_epochs = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr *= self.factor
+                self.bad_epochs = 0
+        return self.lr

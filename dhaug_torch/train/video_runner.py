@@ -51,7 +51,7 @@ from dhaug_torch.models.factory import make_posenet, receptive_field
 from dhaug_torch.parallel import mesh
 from dhaug_torch.parallel.tensor import full_state_dict, shard_module_tp
 from dhaug_torch.train.data_prep import prepare_data
-from dhaug_torch.train.posenet import (device_windows, evaluate_batches, evaluate_sequences,
+from dhaug_torch.train.posenet import (evaluate_batches, evaluate_sequences,
                                        train_video_clips, train_video_windows)
 from dhaug_torch.train.runners import make_logger, make_run_dir, write_eval_scalars
 from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
@@ -152,7 +152,7 @@ def video_eval_batches(loader, batch_size: int, device, bucket: int = 128):
             yield (torch.as_tensor(seq2d, device=device), torch.as_tensor(seq3d, device=device),
                    T)
         return
-    big2d, big3d = device_windows(loader, device)
+    big2d, big3d, _ = loader.device_arrays(device)
     start2d = torch.as_tensor(loader.start2d, device=device)
     idx3d = torch.as_tensor(loader.idx3d, device=device)
     win = torch.arange(loader.window, device=device)[None]

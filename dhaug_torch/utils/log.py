@@ -1,7 +1,8 @@
 """Run logging: the tab-separated ``log.txt``, the scalar stream, counters.
 
-Port of ``dhaug_tpu/utils/log.py``'s ``Logger``, ``MetricsWriter`` and
-``Summary`` (with its ``state_dict``/``load_state_dict`` for resume).  ``log.txt`` has the JAX package's schema: the args dump, the
+Port of ``dhaug_tpu/utils/log.py``'s ``Logger``, ``MetricsWriter``,
+``Summary`` (with its ``state_dict``/``load_state_dict`` for resume),
+``AverageMeter`` and ``ProgressMeter``.  ``log.txt`` has the JAX package's schema: the args dump, the
 header row, then one row per logged epoch.  Scalars go to
 ``metrics.jsonl`` under the reference's TensorBoard tags; this port writes
 no TensorBoard event files (importing ``torch.utils.tensorboard`` can pull in
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from typing import Optional
 
@@ -63,6 +65,10 @@ class MetricsWriter:
             self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": int(step),
                                           "ts": time.time()}) + "\n")
 
+    def flush(self):
+        if self._jsonl is not None:
+            self._jsonl.flush()
+
     def close(self):
         if self._jsonl is not None:
             self._jsonl.close()
@@ -112,3 +118,47 @@ class Summary:
     def close(self):
         if self.writer is not None:
             self.writer.close()
+
+
+class AverageMeter:
+    """Running mean of a value (the reference's AverageMeter,
+    utils/utils.py:95)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+
+class ProgressMeter:
+    """Minimal console progress line (replaces the reference's vendored
+    progress package)."""
+
+    def __init__(self, title: str, total: int, stream=sys.stderr):
+        self.title = title
+        self.total = total
+        self.start = time.time()
+        self.stream = stream
+
+    def update(self, i: int, suffix: str = ""):
+        elapsed = time.time() - self.start
+        rate = (i + 1) / max(elapsed, 1e-9)
+        eta = (self.total - i - 1) / max(rate, 1e-9)
+        self.stream.write(
+            f"\r{self.title} ({i + 1}/{self.total}) "
+            f"{elapsed:6.1f}s elapsed | ETA {eta:6.1f}s {suffix}")
+        self.stream.flush()
+
+    def finish(self):
+        self.stream.write("\n")
+        self.stream.flush()

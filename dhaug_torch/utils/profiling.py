@@ -38,11 +38,12 @@ def _first_tensor(out):
 
 def fence(out) -> None:
     """Wait for the device of the first tensor found in ``out`` (nested
-    lists, tuples and dicts are searched) to finish its queued work.  A CPU
-    tensor, or no tensor at all, has nothing to wait for."""
-    tensor = _first_tensor(out)
-    if tensor is not None and tensor.device.type == "cuda":
-        torch.cuda.synchronize(tensor.device)
+    lists, tuples and dicts are searched), or for ``out`` itself when it is
+    a ``torch.device``, to finish its queued work.  A CPU tensor or device,
+    or no tensor at all, has nothing to wait for."""
+    device = out if isinstance(out, torch.device) else getattr(_first_tensor(out), "device", None)
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager

@@ -3,6 +3,8 @@ elsewhere.  This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -320,3 +322,37 @@ def test_two_gloo_ranks_on_one_card_equal_one_rank(device):
             np.testing.assert_allclose(r[k], one[k], atol=1e-6, rtol=0, err_msg=k)
         for k, v in one["metrics"].items():
             np.testing.assert_allclose(r["metrics"][k], v, atol=1e-6, rtol=1e-6, err_msg=k)
+
+
+def test_visualize_fk_sweep_is_one_b1_launch(device, tmp_path):
+    """The viewer's whole sweep goes through one B1 launch, within 1e-6 m
+    of the plain FK on the same inputs."""
+    from dhaug_torch import visualize_fk
+    out = visualize_fk.main(["--sweep", "3", "--out", str(tmp_path / "knee.png")])
+    assert out["launches"] == 1 and os.path.getsize(out["path"]) > 0
+    n = len(out["angles"])
+    rows = lambda v: torch.tensor(v, dtype=torch.float32, device=device).expand(n, -1)
+    plain = fk_plain.fk_world_pose_16(torch.as_tensor(out["angles"], device=device),
+                                      rows(fk_plain.CANONICAL_BONE_LEN), rows([0.0] * 3),
+                                      rows([0.0] * 3))
+    np.testing.assert_allclose(out["poses"], plain.cpu().numpy(), atol=1e-6, rtol=0)
+
+
+def test_inspector_goldens_come_from_b1(device, tmp_path):
+    """The inspector's four goldens are one B1 launch, within 1e-6 m of the
+    plain FK plus the page's 6-decimal rounding."""
+    import json
+    import re
+
+    from dhaug_torch import make_fk_inspector
+    n0 = fk_cuda.FWD_LAUNCHES
+    path = make_fk_inspector.generate(str(tmp_path / "insp.html"), device)
+    assert fk_cuda.FWD_LAUNCHES == n0 + 1
+    spec = json.loads(re.search(r"const SPEC = (\{.*?\});\n", open(path).read(),
+                                re.S).group(1))
+    assert len(spec["goldens"]) == 4 and len(spec["scatter16"]) == 16
+    as_rows = lambda key: torch.tensor([g[key] for g in spec["goldens"]], device=device)
+    plain = fk_plain.fk_world_pose_16(as_rows("angles"), as_rows("bone_len"),
+                                      as_rows("global_rot"), torch.zeros(4, 3, device=device))
+    np.testing.assert_allclose(np.asarray([g["pose"] for g in spec["goldens"]]),
+                               plain.cpu().numpy(), atol=1e-6 + 5e-7, rtol=0)
