@@ -1156,7 +1156,7 @@ def phase_tools(fk_cuda, trunk_cuda, device) -> dict:
                         [0.0, 0.0, 0.0])
     emit({"phase": "tools", "tool": "visualize_fk", "seconds": seconds,
           "poses": len(result["angles"]), "sweep_range_deg": result["sweep_range"],
-          "png_bytes": png.stat().st_size if png.is_file() else 0,
+          "png_bytes": png.stat().st_size if png.is_file() else 0, "renderer": result["renderer"],
           "launches": launches["visualize_fk"], "b1_rows": rows, "max_abs_err_m": err})
     if not (png.is_file() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"):
         raise AssertionError(f"visualize_fk wrote no PNG at {png}")

@@ -245,26 +245,15 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
         return None
     device = steps.cam_quats.device
     dp = mesh.current()
-    B = batch_size
-    big3d = torch.as_tensor(loader.big3d, device=device)
-    big2d = torch.as_tensor(loader.big2d, device=device)
-    cams = torch.as_tensor(loader.cams, device=device)
-    order = loader.rng.permutation(loader.n_chunks)[: n_batches * B]
-    start3d = torch.as_tensor(loader.start3d[order].reshape(n_batches, B), device=device)
-    start2d = torch.as_tensor(loader.start2d[order].reshape(n_batches, B), device=device)
-    cam_sel = torch.as_tensor(order.reshape(n_batches, B), device=device)
-    win = torch.arange(loader.window, device=device)[None]
-
+    assert loader.batch_size == batch_size and loader.shuffle
     iter_base = summary.train_iter_num
     tag_of = {**_TAG_OF, **(_MOTION_TAG_OF if use_motion else {})}
     scalars = {tag: [] for tag in list(tag_of.values()) + ["G_cost"]}
     nan = torch.full((), float("nan"), device=device)
     fake3d, fake2d, intrs = [], [], []
-    for b in range(n_batches):
-        s3, s2 = dp.rows(start3d[b]), dp.rows(start2d[b])
+    for b, (cams, w3d, w2d) in enumerate(loader.device_epoch(device)):
         cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
-            big3d[s3[:, None] + win], cams[dp.rows(cam_sel[b])],
-            big2d[s2[:, None] + win], generator, use_motion)
+            dp.rows(w3d), dp.rows(cams), dp.rows(w2d), generator, use_motion)
         g_cost = nan
         if (iter_base + b) % 5 == 4:
             g_cost = steps.generator_step(bone_len, cam_idx, generator, use_motion)["g_cost"]

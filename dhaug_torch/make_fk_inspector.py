@@ -7,8 +7,9 @@ length sliders, global rotation and view controls, as ONE static HTML file
 that opens in any browser, which works on a headless machine where a Qt
 display does not.
 
-The DH tables, scatter map and bone-slot rewrites are taken from
-``dhaug_torch.ops.fk`` (the FK's own tables), and the page embeds four
+The DH angle tables, scatter map and bone-slot rewrites are taken from
+``dhaug_torch.ops.fk`` (the FK's own tables), the initial link lengths
+from ``LINK_LENGTHS`` below, and the page embeds four
 golden poses computed here: on load the page's JS forward kinematics
 re-evaluates them and shows the largest deviation, so a drifting JS copy is
 visible at once (the "self-test" banner).  The goldens go through one
@@ -35,6 +36,20 @@ import dhaug_torch
 from dhaug_torch.ops import fk, fk_cuda
 from dhaug_torch.utils.viz import _LEFT_EDGES, SKELETON_EDGES_16
 
+# The reference's initial link lengths a and d in metres
+# (forward_kinematics_DH_model.py:234-261), shown on the page.  The JS FK
+# overwrites every nonzero entry with a bone length (``fk.BONE_REWRITES``)
+# before it walks a chain, as the plain FK does, so no pose depends on them;
+# the shoulders' 0.3 is not the canonical 0.4.
+LINK_LENGTHS = {
+    "right_leg": ((0.25, 0.0, 0.0, 0.6, 0.5), (0.0,) * 5),
+    "left_leg": ((-0.25, 0.0, 0.0, 0.6, 0.5), (0.0,) * 5),
+    "body": ((0.0,) * 12 + (0.15,),
+             (0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.2, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)),
+    "right_hand": ((-0.3, 0.0, 0.0, 0.4, 0.35), (0.0,) * 5),
+    "left_hand": ((0.3, 0.0, 0.0, 0.4, 0.35), (0.0,) * 5),
+}
+
 
 def golden_inputs():
     """The four goldens' (angles (4, 33), bone lengths (4, 15), global
@@ -55,8 +70,9 @@ def golden_inputs():
 def build_spec(device) -> dict:
     """All constants the JS FK needs, from ``dhaug_torch.ops.fk``, and the
     goldens computed on ``device``."""
-    chains = {name: dict(alpha=alpha, a=a, d=d, theta=theta, angle_slice=list(span))
-              for name, (alpha, a, d, theta, span) in fk.CHAINS.items()}
+    chains = {name: dict(alpha=alpha, a=LINK_LENGTHS[name][0], d=LINK_LENGTHS[name][1],
+                         theta=theta, angle_slice=list(span))
+              for name, (alpha, theta, span) in fk.CHAINS.items()}
     scatter16 = []
     for slot16, slot32 in enumerate(fk.H36M_32_TO_16_TABLE):
         for s, chain, joint in fk._SCATTER:

@@ -23,38 +23,27 @@ import math
 
 import torch
 
-# Link tables in degrees and canonical metres
-# (forward_kinematics_DH_model.py:234-261).
+# Link angle tables in degrees (forward_kinematics_DH_model.py:234-261).
 RIGHT_LEG_ALPHA = (0.0, -90.0, -90.0, 0.0, 0.0)
-RIGHT_LEG_A = (0.25, 0.0, 0.0, 0.6, 0.5)
-RIGHT_LEG_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 RIGHT_LEG_THETA = (0.0, -90.0, 180.0, 0.0, 0.0)
 LEFT_LEG_ALPHA = (0.0, 90.0, 90.0, 0.0, 0.0)
-LEFT_LEG_A = (-0.25, 0.0, 0.0, 0.6, 0.5)
-LEFT_LEG_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 LEFT_LEG_THETA = (180.0, -90.0, 0.0, 0.0, 0.0)
 BODY_ALPHA = (0.0, -90.0, -90.0, -90.0, -90.0, -90.0, -90.0,
               -90.0, -90.0, -90.0, -90.0, -90.0, 90.0)
-BODY_A = (0.0,) * 12 + (0.15,)
-BODY_D = (0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.2, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 BODY_THETA = (90.0, -90.0, -90.0, -90.0, -90.0, -90.0, -90.0,
               -90.0, -90.0, -90.0, -90.0, 0.0, 0.0)
 RIGHT_HAND_ALPHA = (-90.0, -90.0, -90.0, 0.0, 0.0)
-RIGHT_HAND_A = (-0.3, 0.0, 0.0, 0.4, 0.35)
-RIGHT_HAND_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 RIGHT_HAND_THETA = (-180.0, -90.0, 180.0, 0.0, 0.0)
 LEFT_HAND_ALPHA = (-90.0, 90.0, 90.0, 0.0, 0.0)
-LEFT_HAND_A = (0.3, 0.0, 0.0, 0.4, 0.35)
-LEFT_HAND_D = (0.0, 0.0, 0.0, 0.0, 0.0)
 LEFT_HAND_THETA = (0.0, -90.0, 0.0, 0.0, 0.0)
 
-# chain -> (alpha, a, d, theta, slice of the 33 packed angles)
+# chain -> (alpha, theta, slice of the 33 packed angles)
 CHAINS = {
-    "right_leg": (RIGHT_LEG_ALPHA, RIGHT_LEG_A, RIGHT_LEG_D, RIGHT_LEG_THETA, (0, 5)),
-    "left_leg": (LEFT_LEG_ALPHA, LEFT_LEG_A, LEFT_LEG_D, LEFT_LEG_THETA, (5, 10)),
-    "body": (BODY_ALPHA, BODY_A, BODY_D, BODY_THETA, (10, 23)),
-    "right_hand": (RIGHT_HAND_ALPHA, RIGHT_HAND_A, RIGHT_HAND_D, RIGHT_HAND_THETA, (23, 28)),
-    "left_hand": (LEFT_HAND_ALPHA, LEFT_HAND_A, LEFT_HAND_D, LEFT_HAND_THETA, (28, 33)),
+    "right_leg": (RIGHT_LEG_ALPHA, RIGHT_LEG_THETA, (0, 5)),
+    "left_leg": (LEFT_LEG_ALPHA, LEFT_LEG_THETA, (5, 10)),
+    "body": (BODY_ALPHA, BODY_THETA, (10, 23)),
+    "right_hand": (RIGHT_HAND_ALPHA, RIGHT_HAND_THETA, (23, 28)),
+    "left_hand": (LEFT_HAND_ALPHA, LEFT_HAND_THETA, (28, 33)),
 }
 
 # The 15 bone lengths (FK order) rewrite these a/d entries, every other
@@ -162,7 +151,7 @@ def fk_world_pose(angles: torch.Tensor, bone_len: torch.Tensor,
     global_rot (..., 3) XYZ Euler degrees, root (..., 3) metres.
     """
     def walk(name, start_R=None, start_p=None):
-        alphas, _, _, thetas, (lo, hi) = CHAINS[name]
+        alphas, thetas, (lo, hi) = CHAINS[name]
         a, d = [0.0] * len(alphas), [0.0] * len(alphas)
         for param, link, bone, sign in BONE_REWRITES[name]:
             (a if param == "a" else d)[link] = bone_len[..., bone] if sign > 0 \

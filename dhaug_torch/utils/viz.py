@@ -7,10 +7,7 @@ paper' figures, loss curves, the DOF-angle heatmap and density, GAN video
 dumps), a headless animation writer and the ``log.txt`` metric curves.
 Every plotter takes host numpy arrays and writes one file.  matplotlib is
 imported inside :func:`_plt`, at the first plot, so the package imports
-where matplotlib is absent; ``--record_all_picture`` needs it.  Where it is
-absent, :func:`plot_pose_grid_3d` (the skeleton viewer's renderer) draws
-with Pillow instead: an orthographic view from matplotlib's default 3D
-camera, the same colours and grid.
+where matplotlib is absent; ``--record_all_picture`` needs it.
 """
 from __future__ import annotations
 
@@ -41,10 +38,7 @@ def _plt():
 def plot_pose_grid_3d(poses16: np.ndarray, path: str, cols: int = 4,
                       title: str = "") -> str:
     """Grid of 3D skeleton plots; poses16 (N, 16, 3)."""
-    try:
-        plt = _plt()
-    except ImportError:
-        return _pose_grid_3d_pil(poses16, path, cols, title)
+    plt = _plt()
     n = min(len(poses16), cols * cols)
     fig = plt.figure(figsize=(3 * cols, 3 * ((n + cols - 1) // cols)))
     for i in range(n):
@@ -64,38 +58,6 @@ def plot_pose_grid_3d(poses16: np.ndarray, path: str, cols: int = 4,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     fig.savefig(path, dpi=80)
     plt.close(fig)
-    return path
-
-
-def _pose_grid_3d_pil(poses16: np.ndarray, path: str, cols: int, title: str,
-                      cell: int = 240) -> str:
-    """:func:`plot_pose_grid_3d` without matplotlib: each pose seen along
-    matplotlib's default 3D view (elevation 30, azimuth -60 degrees),
-    orthographically, scaled to fill its cell."""
-    from PIL import Image, ImageDraw
-
-    n = min(len(poses16), cols * cols)
-    top = 24 if title else 0
-    img = Image.new("RGB", (cols * cell, -(-n // cols) * cell + top), "white")
-    draw = ImageDraw.Draw(img)
-    if title:
-        draw.text((6, 6), title, fill="black")
-    az, el = np.radians(-60.0), np.radians(30.0)
-    right = np.array([-np.sin(az), np.cos(az), 0.0])
-    up = np.array([-np.cos(az) * np.sin(el), -np.sin(az) * np.sin(el), np.cos(el)])
-    for i in range(n):
-        xy = np.stack([poses16[i] @ right, poses16[i] @ up], axis=-1)
-        lo, hi = xy.min(axis=0), xy.max(axis=0)
-        xy = (xy - (lo + hi) / 2) * (0.8 * cell / max(float((hi - lo).max()), 1e-6))
-        cx, cy = (i % cols + 0.5) * cell, top + (i // cols + 0.5) * cell
-        pts = [(cx + x, cy - y) for x, y in xy]
-        for a, b in SKELETON_EDGES_16:
-            color = (31, 119, 180) if (a, b) in _LEFT_EDGES else (214, 39, 40)
-            draw.line([pts[a], pts[b]], fill=color, width=3)
-        for x, y in pts:
-            draw.ellipse([x - 2, y - 2, x + 2, y + 2], fill="black")
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    img.save(path)
     return path
 
 

@@ -13,12 +13,14 @@ a grid of rendered skeletons.
 Every pose of the grid goes through one ``ops/fk_cuda.fk_world_pose_16``
 call: on the card that is one launch of the FK kernel B1, on the CPU the
 plain FK.  Runs on CUDA unless ``--device cpu`` is given; ``--device cuda``
-without a card raises.  Rendering is ``utils/viz.plot_pose_grid_3d``
-(matplotlib, or Pillow where matplotlib is absent).
+without a card raises.  The grid is drawn by ``utils/viz.plot_pose_grid_3d``
+(matplotlib) or, where matplotlib is absent, by this module's Pillow
+renderer; the line the tool prints names the renderer used.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -28,7 +30,7 @@ import dhaug_torch
 from dhaug_torch.gan.traditional import TRAD_HI, TRAD_LO, _PACK_34_TO_33
 from dhaug_torch.ops import fk_cuda
 from dhaug_torch.ops.fk import CANONICAL_BONE_LEN, N_CHAIN_ANGLES
-from dhaug_torch.utils.viz import plot_pose_grid_3d
+from dhaug_torch.utils.viz import _LEFT_EDGES, SKELETON_EDGES_16, plot_pose_grid_3d
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -65,10 +67,42 @@ def sweep_angles(index: int, steps: int):
     return angles, (lo, hi)
 
 
+def pose_grid_pil(poses16: np.ndarray, path: str, cols: int = 4, title: str = "",
+                  cell: int = 240) -> str:
+    """``plot_pose_grid_3d`` without matplotlib: each pose seen along
+    matplotlib's default 3D view (elevation 30, azimuth -60 degrees),
+    orthographically, scaled to fill its cell, in the same colours and grid."""
+    from PIL import Image, ImageDraw
+
+    n = min(len(poses16), cols * cols)
+    top = 24 if title else 0
+    img = Image.new("RGB", (cols * cell, -(-n // cols) * cell + top), "white")
+    draw = ImageDraw.Draw(img)
+    if title:
+        draw.text((6, 6), title, fill="black")
+    az, el = np.radians(-60.0), np.radians(30.0)
+    right = np.array([-np.sin(az), np.cos(az), 0.0])
+    up = np.array([-np.cos(az) * np.sin(el), -np.sin(az) * np.sin(el), np.cos(el)])
+    for i in range(n):
+        xy = np.stack([poses16[i] @ right, poses16[i] @ up], axis=-1)
+        lo, hi = xy.min(axis=0), xy.max(axis=0)
+        xy = (xy - (lo + hi) / 2) * (0.8 * cell / max(float((hi - lo).max()), 1e-6))
+        cx, cy = (i % cols + 0.5) * cell, top + (i // cols + 0.5) * cell
+        pts = [(cx + x, cy - y) for x, y in xy]
+        for a, b in SKELETON_EDGES_16:
+            color = (31, 119, 180) if (a, b) in _LEFT_EDGES else (214, 39, 40)
+            draw.line([pts[a], pts[b]], fill=color, width=3)
+        for x, y in pts:
+            draw.ellipse([x - 2, y - 2, x + 2, y + 2], fill="black")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    img.save(path)
+    return path
+
+
 def main(argv=None) -> dict:
-    """Render the poses; returns the PNG's path, the poses (N, 16, 3) on
-    the host, their angles, the sweep's range (None without ``--sweep``)
-    and the B1 launches made."""
+    """Render the poses; returns the PNG's path, the renderer used, the
+    poses (N, 16, 3) on the host, their angles, the sweep's range (None
+    without ``--sweep``) and the B1 launches made."""
     args = parse_args(argv)
     device = dhaug_torch.resolve_device(args.device)
     sweep_range = None
@@ -89,9 +123,12 @@ def main(argv=None) -> dict:
                                          rows([0.0, 0.0, 0.0]))
     launches = fk_cuda.FWD_LAUNCHES - before
     poses = poses.cpu().numpy()
-    path = plot_pose_grid_3d(poses, args.out, title="DH-FK skeleton")
-    print(f"wrote {path}: {n} poses, FK on {device}, {launches} B1 launch(es)")
-    return {"path": path, "poses": poses, "angles": angles, "sweep_range": sweep_range,
+    try:
+        path, renderer = plot_pose_grid_3d(poses, args.out, title="DH-FK skeleton"), "matplotlib"
+    except ImportError:
+        path, renderer = pose_grid_pil(poses, args.out, title="DH-FK skeleton"), "pillow"
+    print(f"wrote {path} ({renderer}): {n} poses, FK on {device}, {launches} B1 launch(es)")
+    return {"path": path, "renderer": renderer, "poses": poses, "angles": angles, "sweep_range": sweep_range,
             "launches": launches}
 
 

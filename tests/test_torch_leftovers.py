@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from dhaug_torch import make_fk_inspector
 from dhaug_torch.data import chunked as t_chunked
 from dhaug_torch.data import h36m as t_h36m
 from dhaug_torch.data import loaders as t_loaders
@@ -112,8 +113,9 @@ def test_init_fk_dh_angle():
 
 def test_fk_tables_match_the_jax_package():
     assert t_fk.BONE_NAMES == j_fk.BONE_NAMES
-    for chain, (alpha, a, d, theta, (lo, hi)) in t_fk.CHAINS.items():
+    for chain, (alpha, theta, (lo, hi)) in t_fk.CHAINS.items():
         prefix = chain.upper()
+        a, d = make_fk_inspector.LINK_LENGTHS[chain]
         assert (alpha, a, d, theta) == tuple(getattr(j_fk, f"{prefix}_{k}")
                                              for k in ("ALPHA", "A", "D", "THETA"))
         assert slice(lo, hi) == getattr(j_fk, f"{prefix}_SLICE")

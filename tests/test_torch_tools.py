@@ -67,17 +67,20 @@ def test_visualize_fk_refuses_bad_flags(tmp_path):
 
 
 def test_pose_grid_renders_without_matplotlib(tmp_path, monkeypatch):
-    """Where matplotlib is absent the grid is drawn with Pillow."""
+    """Where matplotlib is absent the viewer draws its grid with Pillow and
+    says so; the library's plotter still needs matplotlib."""
     def no_matplotlib():
         raise ImportError("no matplotlib")
     monkeypatch.setattr(viz, "_plt", no_matplotlib)
-    poses = np.random.default_rng(0).normal(size=(6, 16, 3)) * 0.3
-    path = viz.plot_pose_grid_3d(poses, str(tmp_path / "sub" / "grid.png"), title="t")
-    assert _is_png(path)
+    out = visualize_fk.main(["--sweep", "3", "--steps", "6", "--device", "cpu",
+                             "--out", str(tmp_path / "sub" / "grid.png")])
+    assert out["renderer"] == "pillow" and _is_png(out["path"])
     from PIL import Image
-    with Image.open(path) as img:
+    with Image.open(out["path"]) as img:
         assert img.size == (4 * 240, 2 * 240 + 24)
         assert len(img.getcolors(maxcolors=1 << 16)) > 2     # lines drawn in colour
+    with pytest.raises(ImportError):
+        viz.plot_pose_grid_3d(out["poses"], str(tmp_path / "grid2.png"))
 
 
 def _jax_script_spec():
