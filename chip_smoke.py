@@ -83,7 +83,22 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               --video`` (each phase's seconds; B1 at 1024 poses 4 times,
               as the main phase's first epoch; B1 at 4608 poses 10 times
               and B2 once);
-13. data_parallel -- ``--data_parallel_devices`` and multi-process
+13. prepare -- the offline data-prep CLIs: (a) the H36M prep's 2D
+              projection on the card at the processed release's size
+              (~0.53 M world frames of synthetic FK poses: the release
+              cannot be downloaded), held to the CPU's within 1e-3 px, its
+              seconds, the compressed write's seconds and bytes, peak
+              memory; (b) at the fixture's size: the committed 3D as a
+              release-layout .mat tree through ``python -m
+              dhaug_torch.prepare_data_h36m --from-source`` (or, without
+              h5py, its refusal and the projection in this process), the
+              committed 3DHP set as a SPIN npz through ``python -m
+              dhaug_torch.prepare_data_3dhp`` (back within 1e-6), the
+              preflight on the prepared root and 1 epoch of the README's
+              single-frame command from it with ``--warmup -1``, so that
+              the posenet trains and is scored in it (B1 4 at 1024 rows,
+              B2 0);
+14. data_parallel -- ``--data_parallel_devices`` and multi-process
               synthesis on the one card: (a) the main command with
               ``--data_parallel_devices 2`` must stop before any launch;
               (b) the main command in an NCCL group of one rank must train
@@ -110,7 +125,7 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               (c)-(e) sample the card's busy share with nvidia-smi; two
               ranks on one card compete for it, so their times are no
               scaling number;
-14. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
+15. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
               the main command with ``--model_parallel_devices 2`` must
               stop before any launch; (b) the full-width SGD witness of
               data_parallel on a model group of two gloo ranks sharing
@@ -131,7 +146,7 @@ Each run of phases 7-10 (but the poseformer's) is then run once more under
 torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
-after; a rank or process of phases 13-14 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
+after; a rank or process of phases 14-15 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
 ``nvidia-smi`` name/power-limit line, one ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +211,14 @@ VIDEO_ARGS = ["--note", "chip_smoke", "--posenet_name", "mulit_farme_videopose",
               "--batch_size", "512", "--data_enhancement_method", "GAN", "--epochs", "2",
               "--warmup", "0", "--single_dis_warmup_epoch", "1", "--additional_train_epoch", "0",
               "--device", "cuda"]
+
+# the prepare phase at the size of H36M's processed release (VideoPose3D's
+# ~1.56 M training and ~0.54 M test camera frames over 4 cameras): world
+# frames a subject; the card's 2D held to the CPU's (pixels reach ~1000 px,
+# where a float32 ulp is ~6e-5)
+PREP_WORLD_FRAMES = {"S1": 77988, "S5": 77988, "S6": 77988, "S7": 77988, "S8": 77988,
+                     "S9": 67918, "S11": 67918}
+PREP_PX_ATOL = 1e-3
 
 MAIN_ARGS = ["--note", "chip_smoke", "--posenet_name", "mlp", "--lr_p", "1e-3",
              "--keypoints", "gt", "--batch_size", "1024",
@@ -1203,6 +1226,174 @@ def phase_tools(fk_cuda, trunk_cuda, device) -> dict:
     return launches
 
 
+def prep_cli(module: str, argv: list, cwd: Path) -> subprocess.Popen:
+    """``python -m <module> argv`` started in ``cwd`` (the prep CLIs write
+    into their working directory)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cwd.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([sys.executable, "-m", module, *argv], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc: subprocess.Popen, timeout: float = 300) -> tuple:
+    """(returncode, stdout, stderr) of ``proc``, killed if it overruns."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, stdout, stderr
+
+
+def release_sized_poses(device) -> dict:
+    """Synthetic FK poses at the size of H36M's processed release: 7
+    subjects, 30 sequences each (15 actions x 2 takes), PREP_WORLD_FRAMES
+    world frames in all, drawn from a seed on the card."""
+    import numpy as np
+    from dhaug_torch.data.h36m import H36M_ACTIONS
+    from dhaug_torch.data.synthetic import random_fk_poses
+
+    rng = np.random.default_rng(0)
+    names = [f"{a}{take}" for a in H36M_ACTIONS for take in ("", " 1")]
+    return {s: dict(zip(names, np.array_split(random_fk_poses(rng, n, device), len(names))))
+            for s, n in PREP_WORLD_FRAMES.items()}
+
+
+def phase_prepare(fk_cuda, trunk_cuda, device) -> dict:
+    """The offline data-prep CLIs. (a) The H36M prep's projection on the card
+    at the processed release's size (synthetic FK poses: the release cannot
+    be downloaded), held to the same function on the CPU within
+    PREP_PX_ATOL, and the compressed write of both files. (b) At the
+    fixture's size, end to end: the committed 3D as a release-layout .mat
+    tree through ``python -m dhaug_torch.prepare_data_h36m --from-source``
+    (or, where h5py does not import, that CLI's refusal naming h5py and the
+    projection and write called in this process), the committed 3DHP set as
+    a SPIN npz through ``python -m dhaug_torch.prepare_data_3dhp`` (back
+    within 1e-6), the bone templates copied in, the preflight on the
+    prepared root, and 1 epoch of the README's single-frame command from it
+    with the posenet trained in it (B1 4 at 1024 rows, B2 0: the main
+    command's first epoch), its H36M and 3DHP scores finite and positive."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from dhaug_torch import prepare_data_3dhp, prepare_data_h36m, run_fk_gan, validate_data
+
+    launches = {}
+    out_dir = REPO / "_runs" / "chip_smoke_prepare"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+
+    # (a) the release's size
+    t0 = time.perf_counter()
+    positions_3d = release_sized_poses(device)
+    draw_s = time.perf_counter() - t0
+    frames = sum(len(p) for acts in positions_3d.values() for p in acts.values())
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)   # what the earlier phases still hold
+    reset_counts(fk_cuda, trunk_cuda)
+    t0 = time.perf_counter()
+    got = prepare_data_h36m.project_positions_2d(positions_3d, device)
+    torch.cuda.synchronize(device)
+    project_s = time.perf_counter() - t0
+    launches["prepare_projection"] = read_counts(fk_cuda, trunk_cuda)
+    peak = torch.cuda.max_memory_allocated(device) - held
+    t0 = time.perf_counter()
+    want = prepare_data_h36m.project_positions_2d(positions_3d, "cpu")
+    cpu_s = time.perf_counter() - t0
+    err = max(float(np.abs(g - w).max()) for s, acts in want.items() for a, cams in acts.items()
+              for g, w in zip(got[s][a], cams))
+    t0 = time.perf_counter()
+    paths = prepare_data_h36m.write_outputs(positions_3d, got, str(out_dir))
+    write_s = time.perf_counter() - t0
+    written = {Path(p).name: Path(p).stat().st_size for p in paths}
+    for p in paths:
+        Path(p).unlink()
+    emit({"phase": "prepare", "step": "release_size", "data": "synthetic FK poses at H36M's size",
+          "subjects": len(positions_3d), "sequences": sum(map(len, positions_3d.values())),
+          "world_frames": frames, "camera_frames": 4 * frames, "draw_s": draw_s,
+          "projection_s": project_s, "world_frames_per_s": frames / project_s,
+          "camera_frames_per_s": 4 * frames / project_s, "cpu_projection_s": cpu_s,
+          "max_abs_err_px": err, "write_s": write_s, "written_bytes": written,
+          "input_bytes_3d": frames * 32 * 3 * 4, "output_bytes_2d": frames * 4 * 16 * 2 * 4,
+          "projection_peak_bytes": peak,
+          "launches": launches["prepare_projection"]})
+    if not err <= PREP_PX_ATOL or any(launches["prepare_projection"].values()):
+        raise AssertionError(f"prepare: card vs CPU {err} px, launches "
+                             f"{launches['prepare_projection']}")
+    del positions_3d, got, want
+
+    # (b) the fixture's size, end to end
+    root = out_dir / "root"
+    fixture_3d = np.load(REPO / "data" / "data_3d_h36m.npz",
+                         allow_pickle=True)["positions_3d"].item()
+    committed = np.load(REPO / "data_extra" / "test_set" / "test_3dhp.npz")
+    names = [f"mpi_inf_3dhp_test_set/TS{1 + i % 6}/imageSequence/img_{i:06d}.jpg"
+             for i in range(len(committed["pose3d"]))]
+    np.savez(out_dir / "spin.npz", **prepare_data_3dhp.spin_layout(
+        committed["pose3d"], committed["pose2d"], names))
+    try:
+        import h5py  # noqa: F401
+        route = "from_source"
+        prepare_data_h36m.write_mat_tree(fixture_3d, str(out_dir / "release"))
+    except ImportError:
+        route = "h5py_refused"
+    t0 = time.perf_counter()
+    procs = [prep_cli("dhaug_torch.prepare_data_h36m", ["--from-source", str(out_dir / "release")],
+                      root / "data"),
+             prep_cli("dhaug_torch.prepare_data_3dhp", ["--source", str(out_dir / "spin.npz")],
+                      root / "data_extra")]
+    (rc_h36m, out_h36m, err_h36m), (rc_3dhp, out_3dhp, err_3dhp) = map(finish, procs)
+    cli_s = time.perf_counter() - t0
+    if rc_3dhp != 0:
+        raise AssertionError(f"prepare_data_3dhp failed ({rc_3dhp}): {err_3dhp[-3000:]}")
+    if route == "from_source" and rc_h36m != 0:
+        raise AssertionError(f"prepare_data_h36m failed ({rc_h36m}): {err_h36m[-3000:]}")
+    if route == "h5py_refused":
+        if rc_h36m == 0 or "h5py is required" not in err_h36m:
+            raise AssertionError(f"no h5py, yet prepare_data_h36m gave rc {rc_h36m}: "
+                                 f"{err_h36m[-3000:]}")
+        prepare_data_h36m.write_outputs(
+            fixture_3d, prepare_data_h36m.project_positions_2d(fixture_3d, device),
+            str(root / "data"))
+    prepared_3d = np.load(root / "data" / "data_3d_h36m.npz", allow_pickle=True)[
+        "positions_3d"].item()
+    err_3d = max(float(np.abs(prepared_3d[s][a] - p).max())
+                 for s, acts in fixture_3d.items() for a, p in acts.items())
+    prepared = np.load(root / "data_extra" / "test_set" / "test_3dhp.npz")
+    err_3dhp = {k: float(np.abs(prepared[k] - committed[k]).max()) for k in ("pose3d", "pose2d")}
+    emit({"phase": "prepare", "step": "fixture_clis", "route": route, "cli_s": cli_s,
+          "h36m_rc": rc_h36m,
+          "h36m_last_line": (out_h36m if rc_h36m == 0 else err_h36m).strip().splitlines()[-1],
+          "max_abs_err_3d_m": err_3d, "3dhp_round_trip_max_abs": err_3dhp,
+          "3dhp_last_line": out_3dhp.strip().splitlines()[-1]})
+    if not err_3d <= 1e-7 or not max(err_3dhp.values()) <= 1e-6:
+        raise AssertionError(f"prepared files differ: 3D {err_3d}, 3DHP {err_3dhp}")
+
+    shutil.copytree(REPO / "data_extra" / "bone_length_npy",
+                    root / "data_extra" / "bone_length_npy")
+    report = validate_data.main(["--data_root", str(root)])
+    with B1Rows(fk_cuda) as rows:
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        # --warmup -1: the posenet trains in that one epoch (it trains in
+        # epochs after --warmup), as profile_epoch's epoch does
+        result = run_fk_gan.main(with_flags(MAIN_ARGS, epochs=1, warmup=-1, data_root=root,
+                                            checkpoint=out_dir / "run"))
+        seconds = time.perf_counter() - t0
+        launches["prepare"] = read_counts(fk_cuda, trunk_cuda)
+    metrics = check_scores("prepare", result["scores"])
+    emit({"phase": "prepare", "step": "epoch", "preflight_report": report, "seconds": seconds,
+          "epoch_seconds": result["epoch_seconds"], "launches": launches["prepare"],
+          "b1_rows": sorted(set(rows)), **metrics})
+    if launches["prepare"] != {"fwd": 4, "bwd": 0, "trunk": 0} or sorted(set(rows)) != [1024]:
+        raise AssertionError(f"prepare epoch: launches {launches['prepare']} at rows {rows}")
+    return launches
+
+
 def same_tree(a, b) -> bool:
     """Equal trees: the same containers and keys, tensors equal in dtype
     and bits, every other leaf of the same type and value."""
@@ -2145,6 +2336,9 @@ def main() -> int:
     tools_launches = phase_tools(fk_cuda, trunk_cuda, device)
     emit({"phase": "tools", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    prepare_launches = phase_prepare(fk_cuda, trunk_cuda, device)
+    emit({"phase": "prepare", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     dp_launches = phase_data_parallel(fk_cuda, trunk_cuda, main_ref, video_ref, synth_ref)
     emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -2153,7 +2347,7 @@ def main() -> int:
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
              **augment_launches, "baseline": baseline_launches, **video_launches,
-             **extras_launches, **tools_launches, **dp_launches, **tp_launches}
+             **extras_launches, **tools_launches, **prepare_launches, **dp_launches, **tp_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 

@@ -3,7 +3,8 @@ single-frame training (the GAN, traditional and no-augmentation modes) and
 video-mode training (the clip GAN with its motion critics), with checkpoints
 and resume, its baseline and evaluation CLIs, its bulk pose synthesis, and
 every single-device flag of the CLIs (data preflight, the synthetic
-fixture, the bf16 trunk, pictures, the JAX package's posenet checkpoints).
+fixture, the bf16 trunk, pictures, the JAX package's posenet checkpoints),
+and the offline data prep that writes the npz files from the releases.
 
 The package mirrors ``dhaug_tpu``'s module names (``ops.fk``, ``gan.wgan``,
 ``train.posenet``, ...) so each piece has an obvious counterpart, but imports

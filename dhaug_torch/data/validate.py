@@ -69,13 +69,14 @@ def validate_3d_npz(path: str) -> dict:
     if not os.path.exists(path):
         raise DataValidationError(
             path, "file not found",
-            "run data/prepare_data_h36m.py on the official H36M release, or "
+            "run python -m dhaug_torch.prepare_data_h36m on the official H36M "
+            "release, or "
             "pass --synthetic_data true for the hermetic fixture")
     data = np.load(path, allow_pickle=True)
     if "positions_3d" not in data:
         raise DataValidationError(
             path, f"missing 'positions_3d' key (has {list(data.keys())})",
-            "regenerate with data/prepare_data_h36m.py (saves "
+            "regenerate with python -m dhaug_torch.prepare_data_h36m (saves "
             "np.savez(..., positions_3d=...))")
     d3 = data["positions_3d"].item()
     n_frames = 0
@@ -97,7 +98,7 @@ def validate_3d_npz(path: str) -> dict:
             diag = _bbox_diag(_sample_frames(pose))
             if not (_SCALE_LO < diag < _SCALE_HI):
                 hint = ("values look like MILLIMETRES; divide by 1000 "
-                        "(data/prepare_data_h36m.py does this)"
+                        "(python -m dhaug_torch.prepare_data_h36m does this)"
                         if diag > _SCALE_HI else
                         "pose extents are implausibly small — check the "
                         "export scaling")
@@ -121,7 +122,8 @@ def validate_2d_npz(path: str, d3_path: Optional[str] = None,
     if not os.path.exists(path):
         raise DataValidationError(
             path, "file not found",
-            "for GT: data/prepare_data_h36m.py writes it; for detections "
+            "for GT: python -m dhaug_torch.prepare_data_h36m writes it; for "
+            "detections "
             "name the file data_2d_h36m_<kp>.npz and pass --keypoints <kp>")
     data = np.load(path, allow_pickle=True)
     if "positions_2d" not in data:
@@ -191,21 +193,21 @@ def validate_3dhp_npz(path: str) -> dict:
     if not os.path.exists(path):
         raise DataValidationError(
             path, "file not found",
-            "run data_extra/prepare_data_3dhp.py (expects SPIN's "
+            "run python -m dhaug_torch.prepare_data_3dhp (expects SPIN's "
             "mpi_inf_3dhp npz), or --synthetic_data true")
     data = np.load(path)
     for key, last in (("pose3d", 3), ("pose2d", 2)):
         if key not in data:
             raise DataValidationError(
                 path, f"missing '{key}' key (has {list(data.keys())})",
-                "regenerate with data_extra/prepare_data_3dhp.py")
+                "regenerate with python -m dhaug_torch.prepare_data_3dhp")
         arr = data[key]
         if arr.ndim != 3 or arr.shape[1] != 16 or arr.shape[2] != last:
             raise DataValidationError(
                 path, f"'{key}' has shape {arr.shape}, expected "
                 f"(N, 16, {last})",
                 "the 3DHP test set uses the 16-joint H36M layout "
-                "(data_extra/prepare_data_3dhp.py reorders SPIN's 24)")
+                "(python -m dhaug_torch.prepare_data_3dhp reorders SPIN's 24)")
     p3 = data["pose3d"]
     if np.abs(p3[:, 0]).max() > 1e-3:
         raise DataValidationError(

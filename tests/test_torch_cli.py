@@ -2,7 +2,8 @@
 tiny widths on the repo's fixtures (the MLP with the GAN; gcn and videopose
 with the GAN; the normal and NO_enhance modes; ``--pretrain``; video mode
 with both multi-frame posenets, its resume and ``run_evaluate`` on its
-checkpoints), and the package's independence from JAX."""
+checkpoints), the package's independence from JAX, and ``chip_smoke.py``'s
+refusals without the package or a card."""
 import os
 import subprocess
 import sys
@@ -82,6 +83,29 @@ def test_no_jax_in_the_port():
     n_modules, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
     assert bad == "[]"
     assert int(n_modules) >= 48
+
+
+def test_chip_smoke_alone_refuses_with_rc_2(tmp_path):
+    """``chip_smoke.py`` in a directory that holds nothing else of the repo
+    exits 2, naming the missing package, and prints no result."""
+    import shutil
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          cwd=tmp_path, timeout=60)
+    assert proc.returncode == 2
+    assert "the dhaug_torch package is not beside this script" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_chip_smoke_without_a_card_exits_1():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          env=_env(), cwd=REPO, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_device_cuda_without_a_card_raises():

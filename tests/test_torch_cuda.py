@@ -356,3 +356,23 @@ def test_inspector_goldens_come_from_b1(device, tmp_path):
                                       as_rows("global_rot"), torch.zeros(4, 3, device=device))
     np.testing.assert_allclose(np.asarray([g["pose"] for g in spec["goldens"]]),
                                plain.cpu().numpy(), atol=1e-6 + 5e-7, rtol=0)
+
+
+def test_prepare_h36m_projection_on_the_card_equals_the_cpu(device):
+    """The H36M prep's 2D projection on the card within 1e-3 px of the same
+    function on the CPU (pixels reach ~1000 px, where a float32 ulp is
+    ~6e-5), in the file's layout: 4 float32 host arrays a sequence."""
+    from dhaug_torch.data.synthetic import random_fk_poses
+    from dhaug_torch.prepare_data_h36m import project_positions_2d
+    rng = np.random.default_rng(3)
+    positions_3d = {s: {a: random_fk_poses(rng, 700, device) for a in ("Walking", "Eating 1")}
+                    for s in ("S1", "S11")}
+    got = project_positions_2d(positions_3d, device)
+    want = project_positions_2d(positions_3d, "cpu")
+    for s, actions in want.items():
+        for a, cams in actions.items():
+            assert len(got[s][a]) == 4
+            for g, w in zip(got[s][a], cams):
+                assert isinstance(g, np.ndarray) and g.dtype == np.float32
+                assert g.shape == (700, 16, 2) and np.isfinite(g).all()
+                np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)

@@ -2,7 +2,8 @@
 dhaug_torch.validate_data``) against the JAX package's on the CPU: the same
 reports for the committed fixture, and for every corruption that
 tests/test_validate.py builds the same DataValidationError message (the
-two name their own package's fixture writer in one fix hint)."""
+two name their own package's fixture writer in one fix hint, and their own
+prep scripts)."""
 import os
 import shutil
 import subprocess
@@ -86,6 +87,13 @@ def _missing_templates(root):
     return ("validate_dataset_dir", (str(root), "gt", False, True))
 
 
+# the JAX package's prep scripts, which its fix hints name, and the port's
+# CLIs, which the port's name in their place
+PREP_SCRIPTS = {"h36m": ("data/prepare_data_h36m.py", "python -m dhaug_torch.prepare_data_h36m"),
+                "3dhp": ("data_extra/prepare_data_3dhp.py",
+                         "python -m dhaug_torch.prepare_data_3dhp")}
+
+
 # each corruption of tests/test_validate.py:39-171, and the part of the
 # message that names what is wrong
 CORRUPTIONS = {
@@ -115,7 +123,8 @@ def test_corrupted_files_are_refused_with_the_jax_message(case, tmp_path):
     for module in (j_val, t_val):
         with pytest.raises(module.DataValidationError) as err:
             getattr(module, fn)(*args)
-        messages.append(str(err.value.code).replace("dhaug_tpu.", "dhaug_torch."))
+        messages.append(str(err.value.code).replace("dhaug_tpu.", "dhaug_torch.")
+                        .replace(*PREP_SCRIPTS["h36m"]).replace(*PREP_SCRIPTS["3dhp"]))
     assert messages[1] == messages[0]
     assert fragment in messages[1]
     assert isinstance(err.value, SystemExit)
