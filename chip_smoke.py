@@ -98,7 +98,17 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               single-frame command from it with ``--warmup -1``, so that
               the posenet trains and is scored in it (B1 4 at 1024 rows,
               B2 0);
-14. data_parallel -- ``--data_parallel_devices`` and multi-process
+14. bench  -- ``python -m dhaug_torch.bench`` at full width and full batch
+              with short repeats (8 synthesis batches of 65536 a call, 2
+              calls; 20 GAN iterations at 1024 in 1 epoch; 10 video
+              iterations of 512 x 9 in 1 rep; each after a warm-up), with
+              the counters set to 0 just before and read just after: its
+              three lines parse, in the order video, GAN, synthesis, the
+              last with exactly metric/value/unit/vs_baseline, every
+              number positive; B1 100, B2 14 and B3 24 launches exactly;
+              then B1 and B3 at B = 65536 against their plain versions,
+              timed beside their bounds;
+15. data_parallel -- ``--data_parallel_devices`` and multi-process
               synthesis on the one card: (a) the main command with
               ``--data_parallel_devices 2`` must stop before any launch;
               (b) the main command in an NCCL group of one rank must train
@@ -111,10 +121,12 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               summed SGD steps within 2e-3 of its largest element, beside
               a control that must fail that bound (one rank's rows
               alone), the gaps to the plain one rank printed; (c) the
-              main command
-              and (d) the video command on two gloo ranks sharing cuda:0
-              (``parallel/mesh.launch_main``; 512 and 2304 poses a rank in
-              B1/B2) against the main and video phases' runs: the first
+              main command cut to 2 epochs and (d) the video command cut
+              to 1 epoch of a third of the clips (3 GAN iterations, the
+              motion critics on, the posenet trained) on two gloo ranks
+              sharing cuda:0 (``parallel/mesh.launch_main``; 512 and 2304
+              poses a rank in B1/B2) against the same cut commands run on
+              one rank first (``grid_references``): the first
               iteration's Wasserstein estimates within 1e-3 of the critic's
               scores, each rank's B1/B2 launches equal to the one-rank
               run's; the later iterations, the trained weights' gaps and
@@ -125,7 +137,7 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               (c)-(e) sample the card's busy share with nvidia-smi; two
               ranks on one card compete for it, so their times are no
               scaling number;
-15. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
+16. tensor_parallel -- ``--model_parallel_devices`` on the one card: (a)
               the main command with ``--model_parallel_devices 2`` must
               stop before any launch; (b) the full-width SGD witness of
               data_parallel on a model group of two gloo ranks sharing
@@ -133,11 +145,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
               against one rank computing each wide layer as two column
               blocks, each net's summed SGD steps within 2e-3 of its
               largest, beside a control that must fail that bound (the
-              gather's backward summing the blocks instead of slicing);
-              (c) the main command on the model group against the main
-              phase's run and (d) the video command cut to 2 epochs of
-              half the clips (motion critics from epoch 0) against the
-              same command on one rank: the first iteration's
+              gather's backward summing the blocks instead of slicing),
+              witness and control in one launch; (c) and (d) the cut main
+              and video commands of data_parallel on the model group
+              against the same one-rank runs: the first iteration's
               Wasserstein estimates within 1e-3 of the scores, each
               rank's B1/B2 launches equal to the one-rank run's; epoch
               seconds, collective share, weight gaps printed.
@@ -146,7 +157,9 @@ Each run of phases 7-10 (but the poseformer's) is then run once more under
 torch.profiler, outside
 the counted run, for its device kernel time, busy share and top kernels.
 Each path's launch counters are set to 0 just before it runs and read just
-after; a rank or process of phases 14-15 starts at 0 and reports its own.  Then it prints a ``done`` line with the script's seconds, the
+after; a rank or process of phases 15-16 starts at 0 and reports its own.
+Every JSON line but the last two carries ``t_s``, the script's seconds so
+far.  Then it prints a ``done`` line with the script's seconds, the
 ``nvidia-smi`` name/power-limit line, one ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -165,17 +178,11 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_FP32_FLOP_S = 67e12     # H100 SXM fp32, outside the tensor cores
-PEAK_BF16_FLOP_S = 989e12    # H100 SXM dense bf16 tensor cores
-
-# fp32 adds and multiplies per pose, counted from csrc/fk_chain.cuh (sin/cos
-# not counted): forward = 33 links x 8 (theta, Q, t) + 30 chain steps x 63
-# (R t, p +=, R Q) + 27 (Euler) + 16 joints x 18 (Rg p + root); backward =
-# the forward walk with the dRg/droot accumulation (~2.6 k) + the rotation
-# recompute (~1.6 k) + 33 reverse steps of ~146 and the 16 joint cotangents.
-FWD_FLOP_PER_POSE = 33 * 8 + 30 * 63 + 27 + 16 * 18
-BWD_FLOP_PER_POSE = 2611 + 1614 + 33 * 146 + 16 * 18
+if (REPO / "dhaug_torch" / "__init__.py").is_file():  # else main() refuses with rc 2
+    from dhaug_torch.ops.fk_cuda import BWD_FLOP_PER_POSE, FWD_FLOP_PER_POSE
+    from dhaug_torch.utils.profiling import (PEAK_BF16_FLOP_S, bound_ms, cuda_time_ms,
+                                             device_kernels, device_us, host_us, nvidia_smi,
+                                             profile_iterations)
 
 # Kernel vs plain version on the card.  Both run fp32 with the same
 # formulas; they differ only in summation order, FMA contraction and the
@@ -239,27 +246,12 @@ def with_flags(args: list, **flags) -> list:
     return out
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOP_S):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    """``obj`` as one JSON line, with ``t_s``: the script's seconds so far."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - STARTED, 1)}), flush=True)
 
 
 def fk_inputs(B: int, seed: int, device):
@@ -283,45 +275,6 @@ def misaligned(t):
     out.copy_(t)
     assert out.data_ptr() % 16 == 4
     return out
-
-
-def device_us(fn, name=None, calls: int = 30, warmup: int = 10) -> float:
-    """Median device time (µs) of one launch of the kernel whose name holds
-    ``name`` (any kernel when None), over ``calls`` calls of ``fn`` after
-    warm-up, from torch.profiler's kernel events; each call must launch it
-    once."""
-    import statistics
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.name)]
-    # the profiler's activity buffer may drop an event now and then
-    if not calls - 3 <= len(us) <= calls:
-        raise AssertionError(f"profiled {len(us)} launches of {name}, expected {calls}")
-    return statistics.median(us)
-
-
-def host_us(fn, calls: int = 200, warmup: int = 20) -> float:
-    """Host µs a call: a host clock over ``calls`` unsynchronized calls,
-    then one synchronize (outside the clock)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return seconds / calls * 1e6
 
 
 def fk_bounds(B: int):
@@ -631,50 +584,6 @@ def phase_profile(gan, device, iters: int = 10, label=None):
           **profile_iterations(run, iters)})
 
 
-def device_kernels(prof) -> list:
-    """The device-side events of a torch.profiler run (kernels and
-    copies), without user annotations, whose device ranges only span
-    kernels that are counted already."""
-    import torch
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-
-
-def profile_iterations(run, iters: int) -> dict:
-    """``run(n)`` runs n GAN iterations and synchronizes: after a warm-up,
-    the host wall per iteration (unprofiled), and from torch.profiler the
-    device time of each kernel, whose sum over that wall is the device's
-    busy share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    run(5)  # warm-up
-    t0 = time.perf_counter()
-    run(iters)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(iters)
-    prof_wall_us = (time.perf_counter() - t0) * 1e6
-    # device time from kernel events only: a CPU op's self device time
-    # repeats the time of the kernels it launched, and a user annotation's
-    # device range (Optimizer.step#Adam.step) spans kernels counted already
-    kernels = device_kernels(prof)
-    dev = lambda e: e.self_device_time_total
-    busy_us = sum(dev(e) for e in kernels)
-    fk = {name: [dev(e) / e.count, e.count / iters]
-          for name in ("fk_forward_kernel", "fk_backward_kernel")
-          for e in kernels if name in e.key}
-    top = sorted(kernels, key=dev, reverse=True)[:6]
-    return {"iters": iters, "gan_iter_ms": wall_ms / iters,
-            "profiled_iter_ms": prof_wall_us / 1e3 / iters,
-            "device_kernel_ms_per_iter": busy_us / 1e3 / iters,
-            "device_busy_share": busy_us / 1e3 / wall_ms,
-            "fk_kernel_device_us_per_call_and_calls_per_iter": fk,
-            "top_kernels_device_ms_per_iter": [[e.key[:90], dev(e) / 1e3 / iters,
-                                                e.count / iters] for e in top]}
-
-
 def profile_video_iterations(gan, device, iters: int = 10, label: str = "video") -> None:
     """Video GAN iterations at the README command's shapes (512 clips of 9
     frames, every net 1000 wide), with the motion critics on and off, on
@@ -930,7 +839,7 @@ def phase_video(fk_cuda, trunk_cuda):
     the windowed evaluation."""
     import torch
     from dhaug_torch import run_evaluate, run_fk_gan
-    launches, reference = {}, None
+    launches = {}
     for label, args, want in (
             ("video", VIDEO_ARGS, {"fwd": 27 + 5, "bwd": 5}),
             ("video_poseformer", with_flags(VIDEO_ARGS, posenet_name="mulit_farme_poseformer",
@@ -944,10 +853,6 @@ def phase_video(fk_cuda, trunk_cuda):
         launches[label] = read_counts(fk_cuda, trunk_cuda)
         metrics = check_scores(label, result["scores"])
         scalars = result["epoch_scalars"]
-        if label == "video":
-            reference = {"nets": net_weights(result), "run_dir": Path(result["run_dir"]),
-                         "launches": launches[label], "scores": result["scores"],
-                         "epoch_seconds": result["epoch_seconds"], "seconds": seconds}
         emit({"phase": "video", "path": label, "seconds": seconds,
               "epoch_seconds": result["epoch_seconds"], "launches": launches[label],
               "best_h36m_p1": result["best_h36m"], **metrics,
@@ -980,7 +885,7 @@ def phase_video(fk_cuda, trunk_cuda):
         if label == "video":
             profile_run(label, lambda: run_fk_gan.main(args), seconds)
             profile_video_iterations(result["gan"], torch.device("cuda", 0))
-    return launches, reference
+    return launches
 
 
 # cli_extras (a): the written fixture against the committed one, per array
@@ -1394,6 +1299,117 @@ def phase_prepare(fk_cuda, trunk_cuda, device) -> dict:
     return launches
 
 
+# The bench phase: ``python -m dhaug_torch.bench`` at full width and full
+# batch with short repeats, and B1/B3 at the synthesis line's batch.
+BENCH_ARGV = ["--scan_steps", "8", "--iters", "2", "--gan_scan", "20", "--gan_iters", "1",
+              "--video_batches", "10", "--video_reps", "1", "--baseline_iters", "5"]
+BENCH_B = 65536
+
+
+def bench_launches(scan_steps=8, iters=2, gan_scan=20, gan_iters=1, video_batches=10,
+                   video_reps=1) -> dict:
+    """The kernel launches BENCH_ARGV implies: the synthesis line's
+    (1 warm-up + iters) calls of scan_steps batches each make one B3 and
+    one B1 launch a batch; the GAN line's (1 + gan_iters) epochs of
+    gan_scan iterations make one B1 launch an iteration and, on every
+    iteration i with i % 5 == 4 (the count runs on across epochs), one more
+    B1 and one B2 for the generator update; the video line's
+    (1 + video_reps) epochs of video_batches iterations likewise; and each
+    training line's FLOP count runs one critics_step (B1) and one
+    generator_step (B1, B2)."""
+    synth = (1 + iters) * scan_steps
+    n_gan, n_video = (1 + gan_iters) * gan_scan, (1 + video_reps) * video_batches
+    gen = sum(1 for i in range(n_gan) if i % 5 == 4) + \
+        sum(1 for i in range(n_video) if i % 5 == 4)
+    return {"fwd": synth + n_gan + n_video + gen + 2 * 2, "bwd": gen + 2, "trunk": synth}
+
+
+def phase_bench(fk_cuda, trunk_cuda, device) -> dict:
+    """``python -m dhaug_torch.bench`` (in this process, so its launches
+    count) at full width and full batch with short repeats (BENCH_ARGV):
+    its three JSON lines parse, come in the order video, GAN, synthesis,
+    the last holds exactly metric, value, unit and vs_baseline, every
+    number in them is positive, the lines before it name this card; the
+    B1/B2/B3 launches equal bench_launches() -- B1 96 + 4, B2 12 + 2, B3
+    24 -- at 1024, 4608 and 65536 rows.  Then B1 and B3 at the synthesis
+    line's batch of 65536 rows against their plain versions (B1 within
+    FWD_ATOL; B3 to trunk_cuda's rule over the head's std), timed beside
+    their bounds and plain versions (and B3 beside the cuBLAS yardstick
+    of the kernels phase)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from dhaug_torch import bench
+
+    out = io.StringIO()
+    with B1Rows(fk_cuda) as rows, contextlib.redirect_stdout(out):
+        reset_counts(fk_cuda, trunk_cuda)
+        t0 = time.perf_counter()
+        bench.main(BENCH_ARGV)
+        seconds = time.perf_counter() - t0
+        launches = read_counts(fk_cuda, trunk_cuda)
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    emit({"phase": "bench", "seconds": seconds, "launches": launches,
+          "b1_rows": sorted(set(rows)), "lines": lines})
+    kind = torch.cuda.get_device_name(device)
+    positive = lambda line: all(v > 0 for v in line.values()
+                                if isinstance(v, (int, float)) and not isinstance(v, bool))
+    problems = []
+    if [line.get("metric", "").split(" ")[0] for line in lines] != ["video", "GAN", "augmented"]:
+        problems.append(f"lines out of order: {[line.get('metric') for line in lines]}")
+    elif set(lines[-1]) != {"metric", "value", "unit", "vs_baseline"}:
+        problems.append(f"last line keys {sorted(lines[-1])}")
+    if not all(positive(line) for line in lines):
+        problems.append("a number not positive")
+    if not all(line.get("device", {}).get("name") == kind for line in lines[:-1]):
+        problems.append("a line does not name the card")
+    if launches != bench_launches() or sorted(set(rows)) != [1024, 4608, BENCH_B]:
+        problems.append(f"launches {launches} at rows {sorted(set(rows))}, expected "
+                        f"{bench_launches()} at [1024, 4608, {BENCH_B}]")
+    if problems:
+        raise AssertionError(f"bench: {problems}")
+
+    # B1 and B3 at the synthesis line's batch
+    from dhaug_torch.ops import fk as fk_plain
+    ang, bl, grot, root, _ = fk_inputs(BENCH_B, seed=BENCH_B, device=device)
+    got = fk_cuda.fk_forward_cuda(ang, bl, grot, root)
+    fwd_err = float((got - fk_plain.fk_world_pose_16(ang, bl, grot, root)).abs().max())
+    ops = trunk_operands(trunk_cuda, SYNTH_D, device)
+    noise = torch.as_tensor(np.random.default_rng(BENCH_B).normal(size=(BENCH_B, 128)),
+                            dtype=torch.float32, device=device)
+    ops_bf16 = tuple(t.to(torch.bfloat16) for t in ops)
+    head = trunk_cuda.trunk_forward_cuda(ops, noise)
+    ref = trunk_cuda.trunk_reference_bf16(ops, noise)
+    max_rel, mean_rel = trunk_cuda.trunk_errors(head, ref)
+    fwd_bound = fk_bounds(BENCH_B)[0]
+    trunk_bound = bound_ms(trunk_bytes(BENCH_B, SYNTH_D), trunk_flops(BENCH_B, SYNTH_D),
+                           PEAK_BF16_FLOP_S)
+    with torch.no_grad():
+        times = {
+            "fwd_ms": cuda_time_ms(lambda: fk_cuda.fk_forward_cuda(ang, bl, grot, root),
+                                   iters=50),
+            "fwd_plain_ms": cuda_time_ms(lambda: fk_plain.fk_world_pose_16(ang, bl, grot, root),
+                                         iters=10, warmup=3),
+            "trunk_ms": cuda_time_ms(lambda: trunk_cuda.trunk_forward_cuda(ops, noise), iters=20),
+            "trunk_plain_ms": cuda_time_ms(lambda: trunk_cuda.trunk_reference_bf16(ops, noise),
+                                           iters=5, warmup=2),
+            "trunk_library_ms": cuda_time_ms(lambda: library_trunk(ops_bf16, noise), iters=20)}
+    emit({"phase": "bench", "B": BENCH_B, "fwd_max_abs_err_m": fwd_err,
+          "trunk_max_abs_err": float((head - ref).abs().max()), "trunk_max_err_over_std": max_rel,
+          "trunk_mean_err_over_std": mean_rel, **times, "fwd_bound_ms": fwd_bound[0],
+          "fwd_bound_by": fwd_bound[1], "trunk_bound_ms": trunk_bound[0],
+          "trunk_bound_by": trunk_bound[1]})
+    if not (fwd_err <= FWD_ATOL and head.shape == (BENCH_B, 35)
+            and bool(torch.isfinite(head).all()) and max_rel <= trunk_cuda.TRUNK_MAX_ERR
+            and mean_rel <= trunk_cuda.TRUNK_MEAN_ERR):
+        raise AssertionError(f"B = {BENCH_B}: B1 err {fwd_err} m (<= {FWD_ATOL}), B3 max/std "
+                             f"{max_rel} (<= {trunk_cuda.TRUNK_MAX_ERR}), mean/std {mean_rel} "
+                             f"(<= {trunk_cuda.TRUNK_MEAN_ERR})")
+    return {"bench": launches}
+
+
 def same_tree(a, b) -> bool:
     """Equal trees: the same containers and keys, tensors equal in dtype
     and bits, every other leaf of the same type and value."""
@@ -1509,8 +1525,9 @@ def orbax_checks(fk_cuda, trunk_cuda, main_ref: dict) -> dict:
 # this process (what a rank computes with no all-reduce and no global
 # batch norm) must be further than DP_UPDATE_TOL on every net.
 #
-# Then the main and video commands themselves run on two ranks against the
-# main and video phases' one-rank runs: each rank must launch B1/B2 as the
+# Then the main and video commands themselves run on two ranks, cut in
+# depth (GRID_MAIN_ARGS, GRID_VIDEO_ARGS), against the same commands run
+# on one rank here (grid_references): each rank must launch B1/B2 as the
 # one-rank run does, and the first iteration's estimates keep
 # DP_WASSERSTEIN_TOL (the tests' 1e-4 is too tight on the card: the video
 # command's 3D estimate came 1.6e-4 apart, from the kernels cuBLAS picks
@@ -1528,6 +1545,38 @@ DP_WIDTH = 1000
 DP_SGD_LR = {"gen": 1e-2, "d3d": 1e-6, "d2d": 1e-6,                     # tests/test_torch_gan.py
              "v_gen": 1e-3, "v_d3d": 1e-7, "v_d2d": 1e-6, "v_md3d": 1e-7,  # tests/test_torch_video.py
              "v_md2d": 1e-6, "posenet": 1e-3}
+
+# The commands of the grid runs (data_parallel and tensor_parallel (c)-(d)),
+# cut in depth, not width: on gloo every gathered or reduced activation
+# crosses host memory, which made a model group's GAN iteration take
+# 13-26 s at 4608 rows and the two phases ~510 s of the script (an H100
+# 80GB HBM3 at 700 W).  The main command runs 2 epochs (8 GAN iterations,
+# the generator update at the 5th, the posenet in epoch 1); the video
+# command 1 epoch of a third of the clips (--downsample 3: 3 GAN
+# iterations with the motion critics on; video mode runs --epochs +
+# --warmup + --single_dis_warmup_epoch epochs, so 2 - 1 + 0, and trains
+# and scores the posenet in every epoch past --warmup + that warm-up).
+# The video generator update on both grids is the SGD witnesses'.  (A
+# fifth of the clips, one iteration, failed DP_WASSERSTEIN_TOL on the two
+# data ranks: a motion critic's first-iteration estimate is the mean of
+# its four sub-steps, three of them after Adam updates, and its clips
+# put it 5.3e-3 apart, against 4.2e-4 at most here.)
+GRID_MAIN_ARGS = with_flags(MAIN_ARGS, epochs=2, data_root=REPO)
+GRID_VIDEO_ARGS = with_flags(VIDEO_ARGS, epochs=2, warmup=-1, single_dis_warmup_epoch=0,
+                             downsample=3, data_root=REPO)
+
+
+def grid_references(fk_cuda, trunk_cuda) -> tuple:
+    """GRID_MAIN_ARGS and GRID_VIDEO_ARGS on one rank in this process: the
+    references of the grid runs, and their launches."""
+    refs = {}
+    for name, args in (("main", GRID_MAIN_ARGS), ("video", GRID_VIDEO_ARGS)):
+        refs[name] = one_rank_run(fk_cuda, trunk_cuda, args + [
+            "--checkpoint", str(REPO / "_runs" / f"chip_smoke_grid_{name}_one_rank")])
+        check_scores(f"grid_{name}_one_rank", refs[name]["scores"])
+        emit({"phase": "grid_references", "path": name, "seconds": refs[name]["seconds"],
+              "epoch_seconds": refs[name]["epoch_seconds"], "launches": refs[name]["launches"]})
+    return refs, {f"grid_{name}_one_rank": ref["launches"] for name, ref in refs.items()}
 
 
 def dp_witness_inputs(seed: int = 0, B: int = 1024, Bv: int = 512) -> dict:
@@ -2070,8 +2119,8 @@ def dp_synthesis(fk_cuda, trunk_cuda, snapshot: Path, one_process: dict) -> list
     return [r["launches"] for r in ranks]
 
 
-def phase_data_parallel(fk_cuda, trunk_cuda, main_ref: dict, video_ref: dict,
-                        synth_ref: dict) -> dict:
+def phase_data_parallel(fk_cuda, trunk_cuda, main_ref: dict, synth_ref: dict,
+                        grid_refs: dict) -> dict:
     """--data_parallel_devices and multi-process synthesis on the one card:
     (a) the main command with --data_parallel_devices 2 must stop before
     any launch (one card visible); (b) the main command in an NCCL group of
@@ -2079,8 +2128,9 @@ def phase_data_parallel(fk_cuda, trunk_cuda, main_ref: dict, video_ref: dict,
     main phase's weights bit for bit; the full-width SGD witness (two gloo
     ranks vs one); (c) the main command on two gloo ranks sharing cuda:0
     (512 poses a rank in B1/B2) and (d) the video command (2304 poses a
-    rank) against the main and video phases' one-rank runs; (e) synthesis
-    in two processes.  Two ranks on one card compete
+    rank), each cut in depth (GRID_MAIN_ARGS, GRID_VIDEO_ARGS), against
+    the same commands on one rank (``grid_refs``); (e) synthesis in two
+    processes.  Two ranks on one card compete
     for it: their times are no scaling number."""
     import torch
     from dhaug_torch import run_fk_gan
@@ -2129,16 +2179,17 @@ def phase_data_parallel(fk_cuda, trunk_cuda, main_ref: dict, video_ref: dict,
     for who, counts in dp_sgd_witness(fk_cuda, trunk_cuda).items():
         launches[f"dp_sgd_witness_{who}"] = counts
     tags = ["train_G_iter_PoseFk/Fk_d3d_Wasserstein_D", "train_G_iter_PoseFk/d2d_Wasserstein_D"]
-    args = MAIN_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
-                        "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_main")]
-    for r, counts in enumerate(grid_run("data_parallel", "main_2_ranks", args, main_ref, tags)):
+    args = GRID_MAIN_ARGS + ["--data_parallel_devices", "2",
+                             "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_main")]
+    for r, counts in enumerate(grid_run("data_parallel", "main_2_ranks", args, grid_refs["main"],
+                                        tags)):
         launches[f"dp_main_rank{r}"] = counts
-    args = VIDEO_ARGS + ["--data_parallel_devices", "2", "--data_root", str(REPO),
-                         "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_video")]
+    args = GRID_VIDEO_ARGS + ["--data_parallel_devices", "2",
+                              "--checkpoint", str(REPO / "_runs" / "chip_smoke_dp_video")]
     tags += ["train_G_iter_PoseFk/motion_Fk_d3d_Wasserstein_D",
              "train_G_iter_PoseFk/motion_d2d_Wasserstein_D"]
-    for r, counts in enumerate(grid_run("data_parallel", "video_2_ranks", args, video_ref,
-                                        tags)):
+    for r, counts in enumerate(grid_run("data_parallel", "video_2_ranks", args,
+                                        grid_refs["video"], tags)):
         launches[f"dp_video_rank{r}"] = counts
     for r, counts in enumerate(dp_synthesis(fk_cuda, trunk_cuda, main_ref["run_dir"] /
                                             "ckpt_resume_latest.ckpt", synth_ref)):
@@ -2181,11 +2232,10 @@ def tp_sgd_witness(fk_cuda, trunk_cuda, width: int = DP_WIDTH, devices=DP_DEVICE
     one_launches = read_counts(fk_cuda, trunk_cuda)
     one = dp_witness(inputs, "", width, devices[0])
     t0 = time.perf_counter()
-    ranks = mesh.launch("chip_smoke:dp_witness", (inputs, "", width), devices, "gloo",
+    pairs = mesh.launch("chip_smoke:tp_witness_pair", (inputs, width), devices, "gloo",
                         model_parallel=TP_DEVICES_M)
     wall = time.perf_counter() - t0
-    wrong = mesh.launch("chip_smoke:dp_witness", (inputs, "gather_sums", width), devices,
-                        "gloo", model_parallel=TP_DEVICES_M)
+    ranks, wrong = [p[0] for p in pairs], [p[1] for p in pairs]
     two = update_gaps(ranks[0], blocks)
     control = update_gaps(wrong[0], blocks)
     bn_gap = max(float((ranks[0]["bn"][k] - v).abs().max()) for k, v in blocks["bn"].items())
@@ -2220,6 +2270,13 @@ def tp_sgd_witness(fk_cuda, trunk_cuda, width: int = DP_WIDTH, devices=DP_DEVICE
     return {"one_rank": one_launches, **{f"rank{r}": x["launches"] for r, x in enumerate(ranks)}}
 
 
+def tp_witness_pair(inputs: dict, width: int) -> tuple:
+    """A rank's witness on the model group, then its control
+    ('gather_sums', which patches the gather's backward for the rest of
+    the process), in one launch; the witness's launches are its own."""
+    return dp_witness(inputs, "", width), dp_witness(inputs, "gather_sums", width)
+
+
 def one_rank_run(fk_cuda, trunk_cuda, args: list) -> dict:
     """``run_fk_gan.main(args)`` in this process as a reference for
     grid_run: its trained weights, run directory, launches, scores and
@@ -2234,20 +2291,16 @@ def one_rank_run(fk_cuda, trunk_cuda, args: list) -> dict:
             "epoch_seconds": result["epoch_seconds"], "seconds": seconds}
 
 
-def phase_tensor_parallel(fk_cuda, trunk_cuda, main_ref: dict) -> dict:
+def phase_tensor_parallel(fk_cuda, trunk_cuda, grid_refs: dict) -> dict:
     """--model_parallel_devices on the one card: (a) the main command with
     --model_parallel_devices 2 must stop before any launch (one card
     visible); (b) the full-width SGD witness (a model group of two gloo
     ranks vs one rank computing column blocks, beside a control that must
-    fail); (c) the main command on a model group of two gloo ranks sharing
-    cuda:0 against the main phase's one-rank run; (d) the video command
-    cut to 2 epochs of half the clips (``--downsample 2``: 4 GAN
-    iterations an epoch, the motion critics from epoch 0, the posenet in
-    epoch 1) on the model group against the same command on one rank
-    here.  (d) is cut because every wide layer's 4608-row activations
-    cross host memory twice a pass on gloo: the full video command took
-    354 s on the model group (an H100 80GB HBM3 at 700 W).  Two ranks on
-    one card compete for it: their times are no scaling number."""
+    fail); (c) the main command and (d) the video command, each cut in
+    depth (GRID_MAIN_ARGS, GRID_VIDEO_ARGS), on a model group of two gloo
+    ranks sharing cuda:0 against the same commands on one rank
+    (``grid_refs``).  Two ranks on one card compete for it: their times
+    are no scaling number."""
     from dhaug_torch import run_fk_gan
 
     launches = {}
@@ -2268,22 +2321,17 @@ def phase_tensor_parallel(fk_cuda, trunk_cuda, main_ref: dict) -> dict:
 
     for who, counts in tp_sgd_witness(fk_cuda, trunk_cuda).items():
         launches[f"tp_sgd_witness_{who}"] = counts
-    flag = ["--model_parallel_devices", str(TP_DEVICES_M), "--data_root", str(REPO)]
+    flag = ["--model_parallel_devices", str(TP_DEVICES_M)]
     tags = ["train_G_iter_PoseFk/Fk_d3d_Wasserstein_D", "train_G_iter_PoseFk/d2d_Wasserstein_D"]
-    args = MAIN_ARGS + flag + ["--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_main")]
-    for r, counts in enumerate(grid_run("tensor_parallel", "main_model_group_2", args, main_ref,
-                                        tags, TP_DEVICES_M)):
+    args = GRID_MAIN_ARGS + flag + ["--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_main")]
+    for r, counts in enumerate(grid_run("tensor_parallel", "main_model_group_2", args,
+                                        grid_refs["main"], tags, TP_DEVICES_M)):
         launches[f"tp_main_rank{r}"] = counts
-    args = with_flags(VIDEO_ARGS, single_dis_warmup_epoch=0, downsample=2, data_root=REPO)
-    video_ref = one_rank_run(fk_cuda, trunk_cuda, args + [
-        "--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_video_one_rank")])
-    launches["tp_video_one_rank"] = video_ref["launches"]
-    check_scores("tp_video_one_rank", video_ref["scores"])
-    args = args + flag[:2] + ["--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_video")]
+    args = GRID_VIDEO_ARGS + flag + ["--checkpoint", str(REPO / "_runs" / "chip_smoke_tp_video")]
     tags += ["train_G_iter_PoseFk/motion_Fk_d3d_Wasserstein_D",
              "train_G_iter_PoseFk/motion_d2d_Wasserstein_D"]
     for r, counts in enumerate(grid_run("tensor_parallel", "video_model_group_2", args,
-                                        video_ref, tags, TP_DEVICES_M)):
+                                        grid_refs["video"], tags, TP_DEVICES_M)):
         launches[f"tp_video_rank{r}"] = counts
     return launches
 
@@ -2303,9 +2351,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
@@ -2330,7 +2376,7 @@ def main() -> int:
     posenet_launches, posenet_dirs = phase_posenets(fk_cuda, trunk_cuda)
     augment_launches = phase_augment(fk_cuda, trunk_cuda)
     baseline_launches = phase_baseline(fk_cuda, trunk_cuda, posenet_dirs["gcn"])
-    video_launches, video_ref = phase_video(fk_cuda, trunk_cuda)
+    video_launches = phase_video(fk_cuda, trunk_cuda)
     extras_launches = phase_cli_extras(fk_cuda, trunk_cuda, device, main_ref)
     t0 = time.perf_counter()
     tools_launches = phase_tools(fk_cuda, trunk_cuda, device)
@@ -2339,15 +2385,20 @@ def main() -> int:
     prepare_launches = phase_prepare(fk_cuda, trunk_cuda, device)
     emit({"phase": "prepare", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    dp_launches = phase_data_parallel(fk_cuda, trunk_cuda, main_ref, video_ref, synth_ref)
+    bench_path = phase_bench(fk_cuda, trunk_cuda, device)
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    grid_refs, grid_launches = grid_references(fk_cuda, trunk_cuda)
+    dp_launches = phase_data_parallel(fk_cuda, trunk_cuda, main_ref, synth_ref, grid_refs)
     emit({"phase": "data_parallel", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    tp_launches = phase_tensor_parallel(fk_cuda, trunk_cuda, main_ref)
+    tp_launches = phase_tensor_parallel(fk_cuda, trunk_cuda, grid_refs)
     emit({"phase": "tensor_parallel", "seconds": time.perf_counter() - t0})
 
     paths = {"main": main_launches, "synth": synth_launches, **posenet_launches,
              **augment_launches, "baseline": baseline_launches, **video_launches,
-             **extras_launches, **tools_launches, **prepare_launches, **dp_launches, **tp_launches}
+             **extras_launches, **tools_launches, **prepare_launches, **bench_path,
+             **grid_launches, **dp_launches, **tp_launches}
     by_path = lambda key: {path: counts[key] for path, counts in paths.items()}
     source = "dhaug_torch/csrc/fk_kernels.cu"
 
@@ -2388,8 +2439,9 @@ def main() -> int:
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - started})
     print(smi, flush=True)
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
     return 0
 
 

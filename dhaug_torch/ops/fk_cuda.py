@@ -31,6 +31,14 @@ from dhaug_torch.ops import fk as fk_plain
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
+# fp32 adds and multiplies per pose, counted from csrc/fk_chain.cuh (sin/cos
+# not counted): forward = 33 links x 8 (theta, Q, t) + 30 chain steps x 63
+# (R t, p +=, R Q) + 27 (Euler) + 16 joints x 18 (Rg p + root); backward =
+# the forward walk with the dRg/droot accumulation (~2.6 k) + the rotation
+# recompute (~1.6 k) + 33 reverse steps of ~146 and the 16 joint cotangents.
+FWD_FLOP_PER_POSE = 33 * 8 + 30 * 63 + 27 + 16 * 18
+BWD_FLOP_PER_POSE = 2611 + 1614 + 33 * 146 + 16 * 18
+
 _LIB = None
 
 

@@ -11,14 +11,28 @@ report format:
 * :func:`timed` -- one fenced timing of a callable.
 
 Nothing in the training loop calls them, as in the JAX package.
+
+The card's measurement helpers, shared by ``chip_smoke.py``, ``fk_bench.py``
+and the bench modules (``dhaug_torch.bench`` and its siblings):
+
+* :func:`cuda_time_ms` -- CUDA events around a loop of calls;
+* :func:`device_us` / :func:`host_us` -- one kernel's device time a launch
+  (torch.profiler) and the host time a call;
+* :func:`profile_iterations` / :func:`device_kernels` -- host wall, device
+  kernel time and busy share of a run of GAN iterations;
+* :func:`bound_ms` against the H100's published peaks (``PEAK_*``);
+* :func:`device_name` / :func:`nvidia_smi` -- the card's name, and its
+  name and power limit.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import statistics
+import subprocess
 import time
 from collections import defaultdict
-from typing import Callable, Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import torch
 
@@ -100,3 +114,143 @@ class StepTimer:
     def report(self) -> str:
         return " | ".join(f"{p}: {v['mean_s'] * 1000:.1f} ms x{v['count']}"
                           for p, v in self.summary().items())
+
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense rates): a card set below 700 W runs slower under load.
+PEAK_BYTES_PER_S = 3.35e12   # HBM3
+PEAK_FP32_FLOP_S = 67e12     # fp32, outside the tensor cores
+PEAK_BF16_FLOP_S = 989e12    # dense bf16 tensor cores
+
+
+def device_name(device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or "cpu"."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def nvidia_smi() -> str:
+    """The first card's ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` line, e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Milliseconds a call of ``fn`` over ``iters`` calls after
+    ``warmup``, from CUDA events around the loop."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOP_S):
+    """(the least ms the card could take, "bytes" or "operations"): the
+    larger of ``n_bytes`` over the memory rate and ``n_flops`` over
+    ``peak_flops``."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_us(fn, name=None, calls: int = 30, warmup: int = 10) -> float:
+    """Median device time (µs) of one launch of the kernel whose name holds
+    ``name`` (any kernel when None), over ``calls`` calls of ``fn`` after
+    warm-up, from torch.profiler's kernel events; each call must launch it
+    once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.name)]
+    # the profiler's activity buffer may drop an event now and then
+    if not calls - 3 <= len(us) <= calls:
+        raise AssertionError(f"profiled {len(us)} launches of {name}, expected {calls}")
+    return statistics.median(us)
+
+
+def host_us(fn, calls: int = 200, warmup: int = 20) -> float:
+    """Host µs a call: a host clock over ``calls`` unsynchronized calls,
+    then one synchronize (outside the clock)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+class KernelTotal(NamedTuple):
+    """One device-side event name of a profile: its summed device µs
+    and its count, named as ``key_averages()`` names them."""
+    key: str
+    self_device_time_total: float
+    count: int
+
+
+def device_kernels(prof) -> list:
+    """The device-side events of a torch.profiler run (kernels and
+    copies) by name, without user annotations, whose device ranges only
+    span kernels that are counted already: what ``prof.key_averages()``
+    gives for them, read from the raw kineto events.  ``key_averages()``
+    builds an object, stack and tree for every event, host work that took
+    longer than the profiled run itself on whole training runs (15.5 s
+    against this walk's 0.9 s for 210,000 CPU events, torch 2.13)."""
+    totals = defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            total = totals[e.name()]
+            total[0] += e.duration_ns() / 1e3
+            total[1] += 1
+    return [KernelTotal(name, us, n) for name, (us, n) in totals.items()]
+
+
+def profile_iterations(run, iters: int) -> dict:
+    """``run(n)`` runs n GAN iterations and synchronizes: after a warm-up,
+    the host wall per iteration (unprofiled), and from torch.profiler the
+    device time of each kernel, whose sum over that wall is the device's
+    busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run(5)  # warm-up
+    t0 = time.perf_counter()
+    run(iters)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(iters)
+    prof_wall_us = (time.perf_counter() - t0) * 1e6
+    # device time from kernel events only: a CPU op's self device time
+    # repeats the time of the kernels it launched, and a user annotation's
+    # device range (Optimizer.step#Adam.step) spans kernels counted already
+    kernels = device_kernels(prof)
+    dev = lambda e: e.self_device_time_total
+    busy_us = sum(dev(e) for e in kernels)
+    fk = {name: [dev(e) / e.count, e.count / iters]
+          for name in ("fk_forward_kernel", "fk_backward_kernel")
+          for e in kernels if name in e.key}
+    top = sorted(kernels, key=dev, reverse=True)[:6]
+    return {"iters": iters, "gan_iter_ms": wall_ms / iters,
+            "profiled_iter_ms": prof_wall_us / 1e3 / iters,
+            "device_kernel_ms_per_iter": busy_us / 1e3 / iters,
+            "device_busy_share": busy_us / 1e3 / wall_ms,
+            "fk_kernel_device_us_per_call_and_calls_per_iter": fk,
+            "top_kernels_device_ms_per_iter": [[e.key[:90], dev(e) / 1e3 / iters,
+                                                e.count / iters] for e in top]}

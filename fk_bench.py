@@ -15,7 +15,6 @@ per checkout in turns (A, B, B, A) on one card, one after another.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 from pathlib import Path
 
@@ -33,13 +32,15 @@ def main(argv=None) -> int:
         print("fk_bench.py: no CUDA device", file=sys.stderr)
         return 1
     repo = Path(args.repo).resolve()
+    # chip_smoke imported this checkout's dhaug_torch for its timing helpers:
+    # forget it, so that the kernels come from DIR's
+    for name in [n for n in sys.modules if n.split(".")[0] == "dhaug_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(repo))
     from dhaug_torch.ops import fk_cuda
     if not Path(fk_cuda.__file__).resolve().is_relative_to(repo):
         raise RuntimeError(f"imported {fk_cuda.__file__}, not the checkout {repo}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = chip_smoke.nvidia_smi()
     print(smi, flush=True)
     device = torch.device("cuda", 0)
     times = chip_smoke.time_fk_kernels(fk_cuda, device)

@@ -82,7 +82,7 @@ def test_no_jax_in_the_port():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
     assert bad == "[]"
-    assert int(n_modules) >= 48
+    assert int(n_modules) >= 65
 
 
 def test_chip_smoke_alone_refuses_with_rc_2(tmp_path):

@@ -47,8 +47,10 @@ def _misaligned(t):
 # --batch_size 512), 512 x 27 (the default 3,3,3) and 8 x 9 (a ragged last
 # tile of 8); "1027m": inputs 4 bytes past a 16-byte boundary; and a rank's
 # rows of two data-parallel ranks: 512 (the training batch 1024), 2304 (the
-# video clip batch 4608) and 4096 (the synthesis batch 8192)
-FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m", 72, 4608, 13824, 512, 2304, 4096]
+# video clip batch 4608) and 4096 (the synthesis batch 8192); and the
+# benchmark's synthesis batch 65536
+FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m", 72, 4608, 13824, 512, 2304, 4096,
+            65536]
 
 
 def _fk_case(case, seed_offset, device):
@@ -171,14 +173,15 @@ def _trunk(dense, device, seed=0):
 
 
 @pytest.mark.parametrize("dense,B", [(1000, 8192), (1000, 1000), (1000, 1), (40, 1000),
-                                     (64, 64), (256, 333), (1000, 4096)])
+                                     (64, 64), (256, 333), (1000, 4096), (1000, 65536)])
 def test_trunk_kernel_matches_plain(device, dense, B):
     """B3 against the plain bf16 trunk, to the bf16-level rule of
     trunk_cuda.TRUNK_MAX_ERR / TRUNK_MEAN_ERR: the synthesis width at full,
     ragged and single-row batches, one tile (D = 64, B = 64: a swizzle or
     descriptor mismatch shows here first), ragged rows over several tiles
-    (D = 256, B = 333), and a rank's rows of a 2-process synthesis
-    (B = 4096)."""
+    (D = 256, B = 333), a rank's rows of a 2-process synthesis
+    (B = 4096) and the benchmark's synthesis batch (B = 65536: 256 MB of
+    fp32 scratch)."""
     ops = _trunk(dense, device)
     noise = torch.as_tensor(np.random.default_rng(B).normal(size=(B, 128)),
                             dtype=torch.float32, device=device)
@@ -376,3 +379,53 @@ def test_prepare_h36m_projection_on_the_card_equals_the_cpu(device):
                 assert isinstance(g, np.ndarray) and g.dtype == np.float32
                 assert g.shape == (700, 16, 2) and np.isfinite(g).all()
                 np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
+
+
+def test_bench_prints_three_lines_naming_the_card(device):
+    """``python -m dhaug_torch.bench`` at small widths with short repeats:
+    three JSON lines, video, GAN, synthesis; the first two name this card
+    and its power limit, the last holds exactly metric, value, unit and
+    vs_baseline."""
+    import json
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dhaug_torch.bench", "--batch", "8192", "--scan_steps", "2",
+         "--iters", "1", "--dense", "256", "--gan_scan", "5", "--gan_iters", "1",
+         "--video_batch", "64", "--video_batches", "5", "--video_reps", "1",
+         "--baseline_iters", "2"], capture_output=True, text=True, cwd=repo, timeout=600,
+        env={**os.environ, "PYTHONPATH": repo})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [line["metric"].split(" ")[0] for line in lines] == ["video", "GAN", "augmented"]
+    kind = torch.cuda.get_device_name(0)
+    for line in lines[:2]:
+        assert line["device"]["name"] == kind and kind in line["device"]["nvidia_smi"]
+        assert line["value"] > 0 and line["vs_baseline"] > 0 and line["mfu_counted"] > 0
+    assert set(lines[-1]) == {"metric", "value", "unit", "vs_baseline"}
+    assert lines[-1]["value"] > 0 and lines[-1]["vs_baseline"] > 0
+
+
+def test_device_kernels_equal_key_averages(device):
+    """``utils/profiling.device_kernels`` reads the raw kineto events: the
+    same names, counts and summed device µs as ``key_averages()``'s
+    device-side entries without user annotations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dhaug_torch.utils.profiling import device_kernels
+    ang, bl, grot, root, cot = _inputs(1024, 5, device)
+    a = torch.randn(256, 256, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fk_cuda.fk_forward_cuda(ang, bl, grot, root)
+            fk_cuda.fk_backward_cuda(ang, bl, grot, cot)
+            torch.relu(a @ a).sum().item()
+        torch.cuda.synchronize()
+    got = {e.key: (e.self_device_time_total, e.count) for e in device_kernels(prof)}
+    want = {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation}
+    assert sorted(got) == sorted(want)
+    assert [n for key, (_, n) in got.items() if "fk_forward_kernel" in key] == [3]
+    for key, (us, count) in want.items():
+        assert got[key][1] == count and got[key][0] == pytest.approx(us, rel=1e-9, abs=1e-3)
