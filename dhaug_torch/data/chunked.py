@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from dhaug_torch.utils.profiling import span
+
 
 class ChunkWindows:
     """Frame-centred +-pad windows over a list of sequences.
@@ -117,8 +119,9 @@ class ChunkWindows:
         device = torch.empty(0, device=device).device   # 'cuda' -> 'cuda:0'
         cached = getattr(self, "_device_arrays", None)
         if cached is None or cached[0].device != device:
-            cached = tuple(None if a is None else torch.as_tensor(a, device=device)
-                           for a in (self.big2d, self.big3d, self.cams))
+            with span("data.upload"):
+                cached = tuple(None if a is None else torch.as_tensor(a, device=device)
+                               for a in (self.big2d, self.big3d, self.cams))
             self._device_arrays = cached
         return cached
 
@@ -132,11 +135,12 @@ class ChunkWindows:
             else np.arange(self.n_chunks)
         n_full = self.n_chunks // self.batch_size
         sel = order[: n_full * self.batch_size].reshape(n_full, self.batch_size)
-        rows = lambda a: torch.as_tensor(a[sel], device=device)
-        start2d = rows(self.start2d)
-        start3d = rows(self.start3d if self.full_3d_window else self.idx3d)
-        sel = torch.as_tensor(sel, device=device)
-        win = torch.arange(self.window, device=device)[None]
+        with span("data.upload"):     # closed before the first yield
+            rows = lambda a: torch.as_tensor(a[sel], device=device)
+            start2d = rows(self.start2d)
+            start3d = rows(self.start3d if self.full_3d_window else self.idx3d)
+            sel = torch.as_tensor(sel, device=device)
+            win = torch.arange(self.window, device=device)[None]
         for b in range(n_full):
             w2d = big2d[start2d[b][:, None] + win]
             w3d = big3d[start3d[b][:, None] + win] if self.full_3d_window \

@@ -36,6 +36,7 @@ from dhaug_torch.ops.camera import project_to_2d
 from dhaug_torch.parallel import mesh
 from dhaug_torch.parallel.tensor import assert_model_sharded, shard_module_tp
 from dhaug_torch.train.state import adam_gan
+from dhaug_torch.utils.profiling import span, spanned
 
 # The JAX package re-skins in fixed 16384-row chunks and draws 16384 template
 # indices for every chunk, the padded tail's included; the port keeps the
@@ -131,6 +132,7 @@ def dump_angle_heatmap(steps: SingleFrameSteps, seed: int, path: str, batch: int
                             title="generated knee-DOF pair density")
 
 
+@spanned("gan.epoch")
 def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseTarget,
                   target_3d: PoseTarget, batch_size: int, np_rng: np.random.Generator,
                   generator: torch.Generator, summary, writer=None,
@@ -161,18 +163,19 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
     scalars = {k: [] for k in _SCALAR_KEYS + ("g_cost",)}
     nan = torch.full((), float("nan"), device=device)
     for b in range(n_batches):
-        sel_r, sel_t = dp.rows(idx_real[b]), dp.rows(idx_t2d[b])
-        cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
-            dev_3d[sel_r], dev_cam[sel_r], dev_t2d[sel_t], generator)
-        g_cost = nan
-        if (iter_base + b) % 5 == 4:
-            g_cost = steps.generator_step(bone_len, cam_idx, generator)["g_cost"]
-        fake3d.append(f3d)
-        fake2d.append(f2d)
-        intrs.append(intr)
-        for k in _SCALAR_KEYS:
-            scalars[k].append(metrics[k])
-        scalars["g_cost"].append(g_cost)
+        with span("gan.iteration"):
+            sel_r, sel_t = dp.rows(idx_real[b]), dp.rows(idx_t2d[b])
+            cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
+                dev_3d[sel_r], dev_cam[sel_r], dev_t2d[sel_t], generator)
+            g_cost = nan
+            if (iter_base + b) % 5 == 4:
+                g_cost = steps.generator_step(bone_len, cam_idx, generator)["g_cost"]
+            fake3d.append(f3d)
+            fake2d.append(f2d)
+            intrs.append(intr)
+            for k in _SCALAR_KEYS:
+                scalars[k].append(metrics[k])
+            scalars["g_cost"].append(g_cost)
 
     summary.train_discrim_iter_num += n_batches
     summary.train_fakepose_iter_num += sum(1 for b in range(n_batches)
@@ -181,23 +184,24 @@ def run_gan_epoch(steps: SingleFrameSteps, gt2d3d: PoseDataset, target_2d: PoseT
 
     # one device->host transfer for the epoch's per-iteration scalars,
     # averaged over the ranks
-    keys = list(scalars)
-    host = dp.mean(torch.stack([torch.stack(scalars[k]) for k in keys])).cpu().numpy()
-    scalars = dict(zip(keys, host))
+    with span("gan.scalars"):
+        keys = list(scalars)
+        host = dp.mean(torch.stack([torch.stack(scalars[k]) for k in keys])).cpu().numpy()
+        scalars = dict(zip(keys, host))
 
-    if writer is not None:
-        # the reference's writer tags (model_fk_gan_train.py:225-228,316,384)
-        tag_of = {"3d_d_real": "Fk_d3d_D_real", "3d_d_fake": "Fk_d3d_D_fake",
-                  "3d_wasserstein": "Fk_d3d_Wasserstein_D", "3d_d_cost": "Fk_d3d_D_cost",
-                  "2d_d_real": "d2d_D_real", "2d_d_fake": "d2d_D_fake",
-                  "2d_wasserstein": "d2d_Wasserstein_D", "2d_d_cost": "d2d_D_cost"}
-        for b in range(n_batches):
-            for k, tag in tag_of.items():
-                writer.add_scalar(f"train_G_iter_PoseFk/{tag}", float(scalars[k][b]),
-                                  iter_base + b)
-        for b in np.where(~np.isnan(scalars["g_cost"]))[0]:
-            writer.add_scalar("train_G_iter_PoseFk/G_cost", float(scalars["g_cost"][b]),
-                              iter_base + int(b))
+        if writer is not None:
+            # the reference's writer tags (model_fk_gan_train.py:225-228,316,384)
+            tag_of = {"3d_d_real": "Fk_d3d_D_real", "3d_d_fake": "Fk_d3d_D_fake",
+                      "3d_wasserstein": "Fk_d3d_Wasserstein_D", "3d_d_cost": "Fk_d3d_D_cost",
+                      "2d_d_real": "d2d_D_real", "2d_d_fake": "d2d_D_fake",
+                      "2d_wasserstein": "d2d_Wasserstein_D", "2d_d_cost": "d2d_D_cost"}
+            for b in range(n_batches):
+                for k, tag in tag_of.items():
+                    writer.add_scalar(f"train_G_iter_PoseFk/{tag}", float(scalars[k][b]),
+                                      iter_base + b)
+            for b in np.where(~np.isnan(scalars["g_cost"]))[0]:
+                writer.add_scalar("train_G_iter_PoseFk/G_cost", float(scalars["g_cost"][b]),
+                                  iter_base + int(b))
 
     crossed_500 = (iter_base // 500) != (summary.train_iter_num // 500)
     if record_dir is not None and (crossed_500 or iter_base == 0):

@@ -50,6 +50,7 @@ from dhaug_torch.ops.bones import bone_lengths_fk
 from dhaug_torch.ops.camera import camera_to_world_batch, project_to_2d, world_to_camera_batch
 from dhaug_torch.parallel import mesh
 from dhaug_torch.train.state import adam_gan
+from dhaug_torch.utils.profiling import span, spanned
 
 # per-iteration scalars under the reference's writer names
 # (video_GAN_fun.py writer_name= values)
@@ -110,7 +111,8 @@ class VideoSteps(SingleFrameSteps):
                                                cam16[:, 9:13].repeat_interleave(F, dim=0),
                                                cam16[:, 13:16].repeat_interleave(F, dim=0))
             real_rel = (real_world - real_world[:, :1]).reshape(B, F, 16, 3)
-            fake_world = self.synth_fake(bone_len, generator, noise, scaler8)
+            with span("gan.fake"):
+                fake_world = self.synth_fake(bone_len, generator, noise, scaler8)
             fake_root = fake_world[:, :, :1]
             fake_rel = fake_world - fake_root
 
@@ -157,6 +159,7 @@ class VideoSteps(SingleFrameSteps):
         return (cam_idx, bone_len, fake_cam3d.reshape(B, F, 16, 3), fake_2d,
                 intr.reshape(B, F, 9), metrics)
 
+    @spanned("gan.generator")
     def generator_step(self, bone_len, cam_idx, generator, use_motion: bool,
                        noise=None, scaler8=None):
         """The every-5th-iteration generator update
@@ -234,6 +237,7 @@ def build_video_gan(args, train_subjects, video_frames: int, device) -> VideoSte
                       playback=bool(args.GAN_video_playback_input))
 
 
+@spanned("gan.epoch")
 def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
                         generator: torch.Generator, summary, use_motion: bool, writer=None):
     """One pass over a full-window clip loader (``data/chunked.ChunkWindows``
@@ -252,17 +256,19 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
     nan = torch.full((), float("nan"), device=device)
     fake3d, fake2d, intrs = [], [], []
     for b, (cams, w3d, w2d) in enumerate(loader.device_epoch(device)):
-        cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
-            dp.rows(w3d), dp.rows(cams), dp.rows(w2d), generator, use_motion)
-        g_cost = nan
-        if (iter_base + b) % 5 == 4:
-            g_cost = steps.generator_step(bone_len, cam_idx, generator, use_motion)["g_cost"]
-        for key, tag in tag_of.items():
-            scalars[tag].append(metrics[key])
-        scalars["G_cost"].append(g_cost)
-        fake3d.append(f3d)
-        fake2d.append(f2d)
-        intrs.append(intr)
+        with span("gan.iteration"):
+            cam_idx, bone_len, f3d, f2d, intr, metrics = steps.critics_step(
+                dp.rows(w3d), dp.rows(cams), dp.rows(w2d), generator, use_motion)
+            g_cost = nan
+            if (iter_base + b) % 5 == 4:
+                g_cost = steps.generator_step(bone_len, cam_idx, generator,
+                                              use_motion)["g_cost"]
+            for key, tag in tag_of.items():
+                scalars[tag].append(metrics[key])
+            scalars["G_cost"].append(g_cost)
+            fake3d.append(f3d)
+            fake2d.append(f2d)
+            intrs.append(intr)
 
     summary.train_discrim_iter_num += n_batches
     summary.train_fakepose_iter_num += sum(1 for b in range(n_batches)
@@ -271,16 +277,18 @@ def run_video_gan_epoch(steps: VideoSteps, loader, batch_size: int,
 
     # one device->host transfer for the epoch's per-iteration scalars,
     # averaged over the ranks
-    tags = list(scalars)
-    host = dp.mean(torch.stack([torch.stack(scalars[t]) for t in tags])).cpu().numpy()
-    scalars = dict(zip(tags, host))
-    # G_cost is NaN off the generator iterations; skip all-NaN columns
-    summary.record_epoch_scalars({t: float(np.nanmean(v)) for t, v in scalars.items()
-                                  if np.isfinite(v).any()})
-    if writer is not None:
-        for tag, vals in scalars.items():
-            steps_of = np.where(~np.isnan(vals))[0] if tag == "G_cost" else range(n_batches)
-            for b in steps_of:
-                writer.add_scalar(f"train_G_iter_PoseFk/{tag}", float(vals[b]),
-                                  iter_base + int(b))
+    with span("gan.scalars"):
+        tags = list(scalars)
+        host = dp.mean(torch.stack([torch.stack(scalars[t]) for t in tags])).cpu().numpy()
+        scalars = dict(zip(tags, host))
+        # G_cost is NaN off the generator iterations; skip all-NaN columns
+        summary.record_epoch_scalars({t: float(np.nanmean(v)) for t, v in scalars.items()
+                                      if np.isfinite(v).any()})
+        if writer is not None:
+            for tag, vals in scalars.items():
+                steps_of = np.where(~np.isnan(vals))[0] if tag == "G_cost" \
+                    else range(n_batches)
+                for b in steps_of:
+                    writer.add_scalar(f"train_G_iter_PoseFk/{tag}", float(vals[b]),
+                                      iter_base + int(b))
     return tuple(gather_batches(dp, parts) for parts in (fake3d, fake2d, intrs))

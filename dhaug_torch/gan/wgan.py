@@ -46,6 +46,7 @@ from dhaug_torch.ops.augment import flip_pose
 from dhaug_torch.ops.bones import bone_lengths_fk
 from dhaug_torch.ops.camera import camera_to_world_batch, project_to_2d, world_to_camera_batch
 from dhaug_torch.parallel import mesh
+from dhaug_torch.utils.profiling import span, spanned
 
 
 class GanHyper(NamedTuple):
@@ -125,28 +126,36 @@ def critic_step(critic: torch.nn.Module, opt: torch.optim.Optimizer,
     GP rows: the interpolation alpha is drawn per row and the gradient norm
     taken per row (the motion-2D critic interpolates per frame).  ``alpha``
     (global B x g, 1) overrides the draw.  Returns the logged scalars (this
-    rank's means) as 0-d tensors."""
+    rank's means) as 0-d tensors.  Traced as ``gan.critic.<role>`` (the
+    critic class's ``role``) with ``.forward``, ``.grad`` (the penalty's
+    input gradient) and ``.optimizer`` (``_step``: the parameters'
+    gradient, the all-reduce and the optimizer step)."""
     dp = mesh.current()
-    B = real.shape[0]
-    Bg = B * gp_granularity
-    r = real.reshape(Bg, -1)
-    f = fake.reshape(Bg, -1)
-    if alpha is None:
-        alpha = torch.rand((Bg * dp.world, 1), generator=generator, device=r.device,
-                           dtype=r.dtype)
-    alpha = dp.rows(alpha)
-    interp = (alpha * r + (1.0 - alpha) * f).requires_grad_(True)
-    stacked = torch.cat([r, f, interp]).reshape((3 * B,) + tuple(real.shape[1:]))
-    scores = critic(stacked)
-    d_real = scores[:B].mean()
-    d_fake = scores[B:2 * B].mean()
-    (g,) = torch.autograd.grad(scores[2 * B:].sum(), interp, create_graph=True)
-    norms = torch.sqrt(torch.sum(g ** 2, dim=1) + 1e-12)
-    gp = torch.mean((norms - 1.0) ** 2) * lambda_gp
-    loss = d_fake - d_real + gp
-    _step(opt, list(critic.parameters()), loss)
-    return {"d_real": d_real.detach(), "d_fake": d_fake.detach(), "gp": gp.detach(),
-            "d_cost": loss.detach(), "wasserstein": (d_real - d_fake).detach()}
+    name = "gan.critic." + getattr(critic, "role", "net")
+    with span(name):
+        B = real.shape[0]
+        Bg = B * gp_granularity
+        r = real.reshape(Bg, -1)
+        f = fake.reshape(Bg, -1)
+        if alpha is None:
+            alpha = torch.rand((Bg * dp.world, 1), generator=generator, device=r.device,
+                               dtype=r.dtype)
+        alpha = dp.rows(alpha)
+        with span(name + ".forward"):
+            interp = (alpha * r + (1.0 - alpha) * f).requires_grad_(True)
+            stacked = torch.cat([r, f, interp]).reshape((3 * B,) + tuple(real.shape[1:]))
+            scores = critic(stacked)
+            d_real = scores[:B].mean()
+            d_fake = scores[B:2 * B].mean()
+        with span(name + ".grad"):
+            (g,) = torch.autograd.grad(scores[2 * B:].sum(), interp, create_graph=True)
+            norms = torch.sqrt(torch.sum(g ** 2, dim=1) + 1e-12)
+            gp = torch.mean((norms - 1.0) ** 2) * lambda_gp
+            loss = d_fake - d_real + gp
+        with span(name + ".optimizer"):
+            _step(opt, list(critic.parameters()), loss)
+        return {"d_real": d_real.detach(), "d_fake": d_fake.detach(), "gp": gp.detach(),
+                "d_cost": loss.detach(), "wasserstein": (d_real - d_fake).detach()}
 
 
 class SingleFrameSteps:
@@ -192,7 +201,8 @@ class SingleFrameSteps:
             real_world = camera_to_world_batch(real_3d_cam, cam_param16[:, 9:13],
                                                cam_param16[:, 13:16])
             real_rel = real_world - real_world[:, :1]
-            fake_world = self.synth_fake(bone_len, generator, noise, scaler8)
+            with span("gan.fake"):
+                fake_world = self.synth_fake(bone_len, generator, noise, scaler8)
             fake_root = fake_world[:, :1]
             fake_rel = fake_world - fake_root
 
@@ -224,6 +234,7 @@ class SingleFrameSteps:
                    **{f"2d_{k}": v for k, v in m2.items()}}
         return cam_idx, bone_len, fake_cam3d, fake_2d, intr, metrics
 
+    @spanned("gan.generator")
     def generator_step(self, bone_len, cam_idx, generator, noise=None, scaler8=None):
         """The every-5th-iteration generator update
         (model_fk_gan_train.py:415-484).  Returns {"g_cost": 0-d tensor}."""

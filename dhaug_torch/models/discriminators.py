@@ -16,6 +16,8 @@ class Fk3DDiscriminator(nn.Module):
     """Two-branch critic on root-relative 3D poses (B, 16, 3):
     KCS(30) tower || raw-pose(48) tower -> merge(100) -> scalar."""
 
+    role = "d3d"  # its updates are traced as gan.critic.d3d
+
     def __init__(self, dense_dim: int = 1000):  # --Dis_DenseDim_3D
         super().__init__()
         self.kcs_tower = ResTower(30, dense_dim)
@@ -34,6 +36,8 @@ class Fk3DDiscriminator(nn.Module):
 class Fk2DDiscriminator(nn.Module):
     """LeakyReLU MLP on (B, 16, 2) with one residual hop:
     d3 = lrelu(l3(d2) + d1); d4 has no activation."""
+
+    role = "d2d"  # its updates are traced as gan.critic.d2d
 
     def __init__(self, dense_dim: int = 1000):  # --Dis_DenseDim_2D
         super().__init__()
@@ -63,6 +67,8 @@ class MotionFk3DDiscriminator(nn.Module):
     diff-KCS ((F-1) x 15) towers always on; raw-3D (F x 48) and diff-3D
     ((F-1) x 48) towers gated by --motion_Dis_whether_use_3dPos_branch and
     --motion_Dis_whether_use_3dDiff_branch."""
+
+    role = "md3d"  # its updates are traced as gan.critic.md3d
 
     def __init__(self, video_frames: int, dense_dim: int = 1000,  # --video_Dis_DenseDim_3D
                  use_pos_branch: bool = True, use_diff_branch: bool = True):
@@ -95,6 +101,8 @@ class MotionFk3DDiscriminator(nn.Module):
 class MotionFk2DDiscriminator(nn.Module):
     """Motion 2D critic over clips (B, F, 16, 2): a raw-2D tower (F x 32) and
     a tower on the root trajectory's frame-to-frame steps ((F-1) x 2)."""
+
+    role = "md2d"  # its updates are traced as gan.critic.md2d
 
     def __init__(self, video_frames: int, dense_dim: int = 1000):  # --video_Dis_DenseDim_2D
         super().__init__()

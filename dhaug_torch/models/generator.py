@@ -111,6 +111,19 @@ def scale_bone_lengths(bone_len: torch.Tensor, scaler8: torch.Tensor) -> torch.T
     return bone_len * (1.0 + ratio15)
 
 
+def fk_operands(head: torch.Tensor, bone_len: torch.Tensor, scaler8: torch.Tensor,
+                cfg: GeneratorConfig) -> tuple:
+    """The FK's operands for the head output's B x F poses: (angles (BF, 33),
+    scaled bone lengths (BF, 15), global rotation (BF, 3), root (BF, 3))."""
+    B, F = head.shape[0], cfg.video_frames
+    angles37, root = head_to_angles(head.reshape(B * F, cfg.output_dim), cfg)
+    scaled_bl = scale_bone_lengths(bone_len, scaler8)
+    if F > 1:
+        scaled_bl = scaled_bl.repeat_interleave(F, dim=0)
+    return (angles37[:, :33].contiguous(), scaled_bl.contiguous(),
+            angles37[:, 34:37].contiguous(), root.contiguous())
+
+
 def synthesize_poses(head: torch.Tensor, bone_len: torch.Tensor,
                      scaler8: torch.Tensor, cfg: GeneratorConfig) -> torch.Tensor:
     """World poses from the head output (B, F x 35), FK-order bone lengths
@@ -118,14 +131,7 @@ def synthesize_poses(head: torch.Tensor, bone_len: torch.Tensor,
     (Fk_generator.py:383-390): (B, 16, 3) for F == 1, else (B, F, 16, 3).
     The B x F poses go through one FK call."""
     B, F = head.shape[0], cfg.video_frames
-    angles37, root = head_to_angles(head.reshape(B * F, cfg.output_dim), cfg)
-    scaled_bl = scale_bone_lengths(bone_len, scaler8)
-    if F > 1:
-        scaled_bl = scaled_bl.repeat_interleave(F, dim=0)
-    pose16 = fk_cuda.fk_world_pose_16(angles37[:, :33].contiguous(),
-                                      scaled_bl.contiguous(),
-                                      angles37[:, 34:37].contiguous(),
-                                      root.contiguous())
+    pose16 = fk_cuda.fk_world_pose_16(*fk_operands(head, bone_len, scaler8, cfg))
     return pose16 if F == 1 else pose16.reshape(B, F, 16, 3)
 
 

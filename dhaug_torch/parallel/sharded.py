@@ -17,9 +17,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from dhaug_torch.models.generator import GeneratorConfig, sample_scaler8, synthesize_poses
+from dhaug_torch.models.generator import GeneratorConfig, fk_operands, sample_scaler8
 from dhaug_torch.models.trunk_cuda import trunk_forward
+from dhaug_torch.ops import fk_cuda
 from dhaug_torch.parallel import mesh
+from dhaug_torch.utils.profiling import span
 
 
 def stream(device, *key: int) -> torch.Generator:
@@ -53,13 +55,19 @@ def make_sharded_synthesizer(gen_cfg: GeneratorConfig, n_devices: int = 1) -> Ca
              noise: Optional[torch.Tensor] = None,
              scaler8: Optional[torch.Tensor] = None) -> torch.Tensor:
         B = bone_len.shape[0]
-        if noise is None:
-            noise = torch.randn((B, gen_cfg.noise_dim), generator=generator,
-                                device=bone_len.device)
-        head = trunk_forward(ops, noise)
-        if scaler8 is None:
-            scaler8 = sample_scaler8(B, "different", generator, bone_len.device)
-        return synthesize_poses(head, bone_len, scaler8, gen_cfg)
+        with span("synth.trunk"):
+            if noise is None:
+                noise = torch.randn((B, gen_cfg.noise_dim), generator=generator,
+                                    device=bone_len.device)
+            head = trunk_forward(ops, noise)
+        with span("synth.angles"):
+            if scaler8 is None:
+                scaler8 = sample_scaler8(B, "different", generator, bone_len.device)
+            operands = fk_operands(head, bone_len, scaler8, gen_cfg)
+        with span("synth.fk"):
+            pose16 = fk_cuda.fk_world_pose_16(*operands)
+        F = gen_cfg.video_frames
+        return pose16 if F == 1 else pose16.reshape(B, F, 16, 3)
 
     if n_devices == 1:
         return body

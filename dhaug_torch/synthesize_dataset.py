@@ -57,6 +57,7 @@ from dhaug_torch.ops.fk import CANONICAL_BONE_LEN
 from dhaug_torch.parallel import mesh
 from dhaug_torch.parallel.sharded import make_sharded_synthesizer, stream
 from dhaug_torch.utils.checkpoint import load_snapshot, restore_into
+from dhaug_torch.utils.profiling import span, spanned
 
 CAMERA_SUBJECTS = ("S1", "S5", "S6", "S7", "S8")
 
@@ -87,6 +88,7 @@ def get_parser() -> argparse.ArgumentParser:
     return ap
 
 
+@spanned("synth.dispatch")
 def synth_pairs(synthesize, ops, bone_len, cameras, generator, noise=None, scaler8=None,
                 cam_idx=None):
     """One batch: world poses -> one camera -> (cam3d (B, 16, 3), pose2d
@@ -94,7 +96,7 @@ def synth_pairs(synthesize, ops, bone_len, cameras, generator, noise=None, scale
     replace the draws (scripts/synthesize_dataset.py:109-118)."""
     quats, trans, intrs = cameras
     pose16 = synthesize(ops, bone_len, generator, noise=noise, scaler8=scaler8)
-    with torch.no_grad():
+    with torch.no_grad(), span("synth.project"):
         if cam_idx is None:
             cam_idx = torch.randint(0, quats.shape[0], (), generator=generator,
                                     device=quats.device)

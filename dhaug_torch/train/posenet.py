@@ -35,6 +35,7 @@ from dhaug_torch.ops.metrics import mpjpe, p_mpjpe_per_sample
 from dhaug_torch.parallel import mesh
 from dhaug_torch.parallel.tensor import sharded_parameters
 from dhaug_torch.train.state import clip_by_global_norm
+from dhaug_torch.utils.profiling import span, spanned
 
 _AUC_THRESHOLDS = np.linspace(0.0, 150.0, 31)
 
@@ -44,24 +45,29 @@ def root_relative(pose: torch.Tensor) -> torch.Tensor:
     return pose - pose[..., :1, :]
 
 
+@spanned("posenet.step")
 def train_step(model, opt, inputs_2d, targets_3d_rel, max_norm: float,
                generator=None, criterion: str = "mse") -> torch.Tensor:
     """One step on root-relative targets with global-norm clipping;
     ``criterion`` 'mse' (single-frame, nn.MSELoss) or 'mpjpe' (video)."""
-    model.train()
-    out = model(inputs_2d, generator)
-    loss = torch.mean((out - targets_3d_rel) ** 2) if criterion == "mse" else \
-        mpjpe(out, targets_3d_rel)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    params = [p for p in model.parameters() if p.grad is not None]
-    for p, g in zip(params, mesh.current().all_reduce_grads([p.grad for p in params])):
-        p.grad = g
-    clip_by_global_norm(model.parameters(), max_norm, sharded_parameters(model))
-    opt.step()
+    with span("posenet.forward"):
+        model.train()
+        out = model(inputs_2d, generator)
+        loss = torch.mean((out - targets_3d_rel) ** 2) if criterion == "mse" else \
+            mpjpe(out, targets_3d_rel)
+    with span("posenet.backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("posenet.optimizer"):
+        params = [p for p in model.parameters() if p.grad is not None]
+        for p, g in zip(params, mesh.current().all_reduce_grads([p.grad for p in params])):
+            p.grad = g
+        clip_by_global_norm(model.parameters(), max_norm, sharded_parameters(model))
+        opt.step()
     return loss.detach()
 
 
+@spanned("posenet.pass")
 def train_epoch(model, opt, poses_2d, poses_3d, np_rng: np.random.Generator,
                 batch_size: int, max_norm: float, generator=None,
                 flip: bool = True) -> float:
@@ -107,6 +113,7 @@ def video_steps(model, opt, x, y_rel, max_norm: float, generator=None, flip: boo
     return loss
 
 
+@spanned("posenet.pass")
 def train_video_clips(model, opt, clips_2d, center_3d, np_rng: np.random.Generator,
                       batch_size: int, max_norm: float, generator=None, flip: bool = True,
                       playback: bool = False) -> float:
@@ -125,6 +132,7 @@ def train_video_clips(model, opt, clips_2d, center_3d, np_rng: np.random.Generat
     return float(dp.mean(torch.stack(losses).mean()))
 
 
+@spanned("posenet.pass")
 def train_video_windows(model, opt, loader, np_rng: np.random.Generator, batch_size: int,
                         max_norm: float, generator=None, flip: bool = True,
                         playback: bool = False) -> float:

@@ -58,6 +58,7 @@ from dhaug_torch.train.state import adam_posenet, lambda_lr, set_learning_rate
 from dhaug_torch.utils.checkpoint import (generator_state, load_snapshot, net_state,
                                           restore_generator, restore_net, save_ckpt,
                                           save_snapshot)
+from dhaug_torch.utils.profiling import span, spanned
 from dhaug_torch.utils.viz import plot_scalar_curves, plot_video_strip
 
 def video_data_preparation(args):
@@ -113,6 +114,7 @@ def per_action_eval_loaders(batch_size: int, h36m_eval, pad: int):
 
 
 @torch.no_grad()
+@spanned("reskin.update")
 def video_reskin_update(args, bundle, templates: np.ndarray, rng: np.random.Generator,
                         device) -> ChunkWindows:
     """Re-skin each training sequence with one random bone-length template
@@ -122,20 +124,24 @@ def video_reskin_update(args, bundle, templates: np.ndarray, rng: np.random.Gene
     lengths = [np.asarray(s).shape[0] for s in bundle.poses_train]
     tmpl_idx = [int(rng.integers(0, templates.shape[0])) for _ in lengths]
 
-    flat3d = torch.as_tensor(np.concatenate([np.asarray(s, np.float32)
-                                             for s in bundle.poses_train]), device=device)
-    cams = torch.as_tensor(np.repeat(np.stack([np.asarray(c, np.float32)[:9]
-                                               for c in bundle.cams_train]), lengths, axis=0),
-                           device=device)
-    rows = torch.as_tensor(templates, dtype=torch.float32, device=device)[
-        torch.as_tensor(np.repeat(tmpl_idx, lengths), device=device)]
-    new3d, new2d = reskin_rows(flat3d, cams, rows)
-    splits = np.cumsum(lengths)[:-1]
-    new3d = np.split(new3d.cpu().numpy(), splits)
-    new2d = np.split(new2d.cpu().numpy(), splits)
-    return ChunkWindows(args.batch_size, bundle.cams_train, new3d, new2d, pad=pad,
-                        full_3d_window=True, shuffle=True,
-                        random_seed=int(rng.integers(0, 2 ** 31)))
+    with span("reskin.upload"):
+        flat3d = torch.as_tensor(np.concatenate([np.asarray(s, np.float32)
+                                                 for s in bundle.poses_train]), device=device)
+        cams = torch.as_tensor(np.repeat(np.stack([np.asarray(c, np.float32)[:9]
+                                                   for c in bundle.cams_train]), lengths,
+                                         axis=0), device=device)
+        rows = torch.as_tensor(templates, dtype=torch.float32, device=device)[
+            torch.as_tensor(np.repeat(tmpl_idx, lengths), device=device)]
+    with span("reskin.rows"):
+        new3d, new2d = reskin_rows(flat3d, cams, rows)
+    with span("reskin.download"):
+        splits = np.cumsum(lengths)[:-1]
+        new3d = np.split(new3d.cpu().numpy(), splits)
+        new2d = np.split(new2d.cpu().numpy(), splits)
+    with span("reskin.loader"):
+        return ChunkWindows(args.batch_size, bundle.cams_train, new3d, new2d, pad=pad,
+                            full_3d_window=True, shuffle=True,
+                            random_seed=int(rng.integers(0, 2 ** 31)))
 
 
 def video_eval_batches(loader, batch_size: int, device, bucket: int = 128):

@@ -1,16 +1,19 @@
 """Tracing and timing helpers.
 
-Port of ``dhaug_tpu/utils/profiling.py``, with the same functions and
-report format:
+Port of ``dhaug_tpu/utils/profiling.py`` (``fence``, ``trace``, ``timed``),
+with the JAX package's per-phase ``StepTimer`` replaced by a span recorder
+on the profiler's clock:
 
+* :func:`span` -- a named span at a layer boundary of the program.  It is
+  live only while a ``torch.profiler`` profile records, and then opens a
+  ``record_function`` of its name, keeps its start, end, parent, root and
+  self time in memory, and counts the synchronizing CUDA operations made
+  inside it; otherwise it does nothing.  :func:`span_records` and
+  :func:`span_summary` read what was kept;
 * :func:`trace` -- a context manager around ``torch.profiler`` that writes
   a Chrome trace (``chrome://tracing``, Perfetto) of host and device
-  activity into ``log_dir``;
-* :class:`StepTimer` -- per-phase wall timing, fenced on the device when
-  asked, aggregated like the reference's AverageMeter;
+  activity into ``log_dir``, and the block's span table beside it;
 * :func:`timed` -- one fenced timing of a callable.
-
-Nothing in the training loop calls them, as in the JAX package.
 
 The card's measurement helpers, shared by ``chip_smoke.py``, ``fk_bench.py``
 and the bench modules (``dhaug_torch.bench`` and its siblings):
@@ -27,14 +30,18 @@ and the bench modules (``dhaug_torch.bench`` and its siblings):
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import os
 import statistics
 import subprocess
 import time
+import warnings
 from collections import defaultdict
-from typing import Callable, Mapping, NamedTuple
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def _first_tensor(out):
@@ -59,20 +66,193 @@ def fence(out) -> None:
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class SpanRecord(NamedTuple):
+    """One closed span.  ``span_id`` numbers the spans in the order they
+    opened, ``parent_id`` is the enclosing span's (-1 for a root, the
+    outermost open span), ``root`` the ordinal of the span's root among
+    roots: every span of one root shares it.  Times are ``time.time_ns()``,
+    the clock kineto stamps host events with.  ``syncs`` counts the
+    synchronizing CUDA operations made in the span and not in a child."""
+    name: str
+    start_ns: int
+    end_ns: int
+    span_id: int
+    parent_id: int
+    root: int
+    syncs: int
+    child_ns: int
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    @property
+    def self_ms(self) -> float:
+        """The duration less the time the span's children cover."""
+        return (self.end_ns - self.start_ns - self.child_ns) / 1e6
+
+
+class _Off:
+    """The span of a recorder that is off: enters and exits, nothing else."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("recorder", "name", "start_ns", "span_id", "parent", "root", "syncs",
+                 "child_ns", "annotation")
+
+    def __init__(self, recorder: "SpanRecorder", name: str):
+        self.recorder, self.name = recorder, name
+
+    def __enter__(self):
+        rec = self.recorder
+        self.parent = rec.open[-1] if rec.open else None
+        if self.parent is None:
+            self.root = rec.roots
+            rec.roots += 1
+            rec.begin_root()
+        else:
+            self.root = self.parent.root
+        self.span_id = rec.spans
+        rec.spans += 1
+        self.syncs = self.child_ns = 0
+        rec.open.append(self)
+        self.start_ns = time.time_ns()
+        self.annotation = torch.profiler.record_function(self.name)
+        self.annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.annotation.__exit__(*exc)
+        end_ns = time.time_ns()
+        rec = self.recorder
+        rec.open.pop()
+        parent = self.parent
+        if parent is not None:
+            parent.child_ns += end_ns - self.start_ns
+        else:
+            rec.end_root()
+        rec.records.append(SpanRecord(self.name, self.start_ns, end_ns, self.span_id,
+                                      -1 if parent is None else parent.span_id, self.root,
+                                      self.syncs, self.child_ns))
+        return False
+
+
+class SpanRecorder:
+    """What :func:`span` keeps: the closed spans' records, the open spans
+    (innermost last) and the counts that number spans and roots.
+
+    While a root span is open, the synchronizing CUDA operations it makes
+    are counted on the innermost open span: where CUDA is initialized the
+    root sets ``torch.cuda.set_sync_debug_mode("warn")``, and each such
+    warning is counted instead of shown; the previous mode, warning filters
+    and ``warnings.showwarning`` come back when the root closes.  Spans add
+    no fence or synchronization of their own."""
+
+    def __init__(self):
+        self.records = []            # SpanRecord, in the order spans closed
+        self.open = []
+        self.spans = self.roots = 0
+        self._warnings = self._shown = self._mode = None
+
+    def begin_root(self) -> None:
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.filterwarnings("always", message=".*" + SYNC_WARNING)
+        self._shown = warnings.showwarning
+        warnings.showwarning = self._count
+        if torch.cuda.is_initialized():
+            self._mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def end_root(self) -> None:
+        if self._mode is not None:
+            torch.cuda.set_sync_debug_mode(self._mode)
+            self._mode = None
+        self._warnings.__exit__(None, None, None)
+        self._warnings = self._shown = None
+
+    def _count(self, message, category, filename, lineno, file=None, line=None):
+        if self.open and SYNC_WARNING in str(message):
+            self.open[-1].syncs += 1
+        else:
+            self._shown(message, category, filename, lineno, file, line)
+
+
+RECORDER = SpanRecorder()
+
+
+def span(name: str):
+    """``with span("gan.iteration"): ...``: a span of the process's
+    recorder, live only while a ``torch.profiler`` profile records
+    (``torch.autograd.profiler._is_profiler_enabled``, a module bool).
+    Otherwise it is one shared no-op object: no annotation, clock read or
+    allocation."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(RECORDER, name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs in ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(RECORDER, name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def span_records() -> list:
+    """The process's kept :class:`SpanRecord` list, in closing order."""
+    return RECORDER.records
+
+
+def span_summary(records: Optional[Sequence[SpanRecord]] = None) -> dict:
+    """For each span name of ``records`` (the process's kept records by
+    default): calls, total and self milliseconds, and syncs."""
+    out = {}
+    for r in RECORDER.records if records is None else records:
+        row = out.setdefault(r.name, {"calls": 0, "total_ms": 0.0, "self_ms": 0.0, "syncs": 0})
+        row["calls"] += 1
+        row["total_ms"] += r.ms
+        row["self_ms"] += r.self_ms
+        row["syncs"] += r.syncs
+    return out
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (the CPU, and CUDA where a
-    card is present) and write ``<log_dir>/trace.json``."""
+    card is present) and write ``<log_dir>/trace.json`` and, from the
+    spans the block recorded, ``<log_dir>/spans.json`` (:func:`span_summary`)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    first = len(RECORDER.records)
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(span_summary(RECORDER.records[first:]), f, indent=1)
 
 
 def timed(fn: Callable, *args, iters: int = 1, **kwargs):
@@ -84,36 +264,6 @@ def timed(fn: Callable, *args, iters: int = 1, **kwargs):
         out = fn(*args, **kwargs)
     fence(out)
     return out, (time.perf_counter() - t0) / iters
-
-
-class StepTimer:
-    """Accumulates per-phase timings: ``with timer("gan"): ...``.  Pass
-    ``fence_out=<device output>`` to include the device work in the
-    measurement (its device is synchronized at phase exit)."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, phase: str, fence_out=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if fence_out is not None:
-                fence(fence_out)
-            self.totals[phase] += time.perf_counter() - t0
-            self.counts[phase] += 1
-
-    def summary(self) -> dict:
-        return {p: {"total_s": self.totals[p], "count": self.counts[p],
-                    "mean_s": self.totals[p] / max(self.counts[p], 1)}
-                for p in self.totals}
-
-    def report(self) -> str:
-        return " | ".join(f"{p}: {v['mean_s'] * 1000:.1f} ms x{v['count']}"
-                          for p, v in self.summary().items())
 
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
