@@ -16,6 +16,7 @@ kernels for CUDA tensors, the plain FK for CPU tensors).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +53,18 @@ _SCALER_GROUPS = np.zeros((8, 15), np.float32)
 for _bone, _group in enumerate([0, 0, 1, 1, 2, 2, 3, -1, 4, 4, 5, 5, 6, 6, 7]):
     if _group >= 0:
         _SCALER_GROUPS[_group, _bone] = 1.0
+
+_TABLES = {"slots": NONZERO_SLOTS, "range_scale": GAN_RANGE_SCALE,
+           "range_mid": GAN_RANGE_MID, "scaler_groups": _SCALER_GROUPS}
+
+
+@functools.lru_cache(maxsize=None)
+def _table(name: str, device: torch.device, dtype=None) -> torch.Tensor:
+    """The constant table ``name`` on ``device`` (a tensor's device, so a
+    CUDA one names its card), uploaded on its first use there and shared
+    read-only afterwards: a pageable host-to-device copy synchronizes the
+    stream, which a synthesis dispatch must not."""
+    return torch.as_tensor(_TABLES[name], dtype=dtype, device=device)
 
 
 class GeneratorConfig(NamedTuple):
@@ -90,12 +103,11 @@ def head_to_angles(head: torch.Tensor, cfg: GeneratorConfig):
     root = squashed[..., 32:35] * 10.0
     vals31 = squashed[..., :31]
     angles37 = head.new_zeros(head.shape[:-1] + (37,))
-    slots = torch.as_tensor(NONZERO_SLOTS, device=head.device)
-    angles37 = angles37.index_copy(-1, slots, vals31)
+    angles37 = angles37.index_copy(-1, _table("slots", head.device), vals31)
     if cfg.use_pre_angle:
         # x * (hi-lo)/2 + (hi+lo)/2; zero-range slots have scale = mid = 0
-        angles37 = (angles37 * torch.as_tensor(GAN_RANGE_SCALE, device=head.device)
-                    + torch.as_tensor(GAN_RANGE_MID, device=head.device))
+        angles37 = (angles37 * _table("range_scale", head.device)
+                    + _table("range_mid", head.device))
     else:
         angles37 = angles37 * 180.0
     if not cfg.use_global_rot:
@@ -106,7 +118,7 @@ def head_to_angles(head: torch.Tensor, cfg: GeneratorConfig):
 def scale_bone_lengths(bone_len: torch.Tensor, scaler8: torch.Tensor) -> torch.Tensor:
     """new = len * (1 + group ratio); bone_len (..., 15) FK order, scaler8
     (..., 8) in [-0.2, 0.2]."""
-    groups = torch.as_tensor(_SCALER_GROUPS, dtype=scaler8.dtype, device=scaler8.device)
+    groups = _table("scaler_groups", scaler8.device, scaler8.dtype)
     ratio15 = torch.einsum("gb,...g->...b", groups, scaler8)
     return bone_len * (1.0 + ratio15)
 

@@ -93,15 +93,19 @@ def synth_pairs(synthesize, ops, bone_len, cameras, generator, noise=None, scale
                 cam_idx=None):
     """One batch: world poses -> one camera -> (cam3d (B, 16, 3), pose2d
     (B, 16, 2), intrinsics (B, 9)); ``noise``, ``scaler8`` and ``cam_idx``
-    replace the draws (scripts/synthesize_dataset.py:109-118)."""
+    replace the draws (scripts/synthesize_dataset.py:109-118).  The camera
+    is gathered on the device, so a dispatch reads nothing back to the host
+    and the host can queue the next one while this one runs."""
     quats, trans, intrs = cameras
     pose16 = synthesize(ops, bone_len, generator, noise=noise, scaler8=scaler8)
     with torch.no_grad(), span("synth.project"):
         if cam_idx is None:
             cam_idx = torch.randint(0, quats.shape[0], (), generator=generator,
                                     device=quats.device)
-        cam3d = world_to_camera_batch(pose16, quats[cam_idx][None], trans[cam_idx][None])
-        intr = intrs[cam_idx][None].expand(pose16.shape[0], 9)
+        row = torch.as_tensor(cam_idx, device=quats.device).reshape(1)
+        cam3d = world_to_camera_batch(pose16, quats.index_select(0, row),
+                                      trans.index_select(0, row))
+        intr = intrs.index_select(0, row).expand(pose16.shape[0], 9)
         pose2d = project_to_2d(cam3d, intr)
     return cam3d, pose2d, intr
 

@@ -227,6 +227,44 @@ def test_short_synthesis_run_launches_both_kernels(device, tmp_path):
     assert result["n_poses"] == 1000
 
 
+def test_synthesis_dispatch_makes_no_host_synchronization(device):
+    """After a warm-up dispatch (the generator's constant tables uploaded
+    once on the card), three dispatches of the synthesis body and the
+    generator's two table users alone run under the sync debug mode
+    "error": nothing in them synchronizes the host with the card."""
+    from dhaug_torch import synthesize_dataset
+    from dhaug_torch.gan.wgan import camera_bank
+    from dhaug_torch.models import generator
+    from dhaug_torch.ops.fk import CANONICAL_BONE_LEN
+    from dhaug_torch.parallel.sharded import make_sharded_synthesizer
+
+    B = 4096
+    cfg = GeneratorConfig()
+    ops = _trunk(cfg.dense_dim, device)
+    synthesize = make_sharded_synthesizer(cfg)
+    cameras = camera_bank(["S1", "S5", "S6", "S7", "S8"], device)
+    bone_len = torch.tensor(CANONICAL_BONE_LEN, dtype=torch.float32,
+                            device=device).expand(B, 15).contiguous()
+    g = torch.Generator(device=device).manual_seed(1)
+    head = torch.randn(B, 35, device=device)
+    scaler8 = torch.zeros(B, 8, device=device)
+    synthesize_dataset.synth_pairs(synthesize, ops, bone_len, cameras, g)
+    torch.cuda.synchronize()
+    t0 = trunk_cuda.TRUNK_LAUNCHES
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [synthesize_dataset.synth_pairs(synthesize, ops, bone_len, cameras, g)
+                for _ in range(3)]
+        generator.head_to_angles(head, cfg)
+        generator.scale_bone_lengths(bone_len, scaler8)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert trunk_cuda.TRUNK_LAUNCHES == t0 + 3
+    assert all(o[0].shape == (B, 16, 3) and bool(torch.isfinite(o[1]).all()) for o in outs)
+
+
 def test_bf16_trunk_gan_step_runs_on_both_kernels(device):
     """A single-frame critic phase and generator update with the bf16 trunk
     (--bf16_trunk) at batch 256, width 64: the trunk computes in bf16 on

@@ -14,13 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from dhaug_torch import synthesize_dataset
 from dhaug_torch.gan.wgan import camera_bank
-from dhaug_torch.models import convert, trunk_cuda
+from dhaug_torch.models import convert, generator, trunk_cuda
 from dhaug_torch.models.generator import FkGeneratorNet, GeneratorConfig
 from dhaug_torch.ops import fk_cuda
 from dhaug_torch.ops.bones import bone_lengths_fk
+from dhaug_torch.ops.camera import project_to_2d, world_to_camera_batch
 from dhaug_torch.ops.fk import CANONICAL_BONE_LEN
 from dhaug_torch.parallel.sharded import make_sharded_synthesizer
 from dhaug_torch.utils.checkpoint import save_snapshot
@@ -77,6 +79,79 @@ def test_synthesis_body_matches_the_jax_chain():
 
 def _canonical():
     return torch.tensor(CANONICAL_BONE_LEN, dtype=torch.float32)
+
+
+def _dispatch_inputs(dense=32, B=16, seed=0):
+    cfg = GeneratorConfig(dense_dim=dense)
+    torch.manual_seed(seed)
+    ops = trunk_cuda.trunk_weights(FkGeneratorNet(cfg))
+    return (make_sharded_synthesizer(cfg), ops, _canonical().expand(B, 15).contiguous(),
+            camera_bank(SUBJECTS))
+
+
+def test_a_dispatch_reads_nothing_back_to_the_host():
+    """A synthesis dispatch makes no host read of a device value (on a
+    card each one drains the queue the host dispatched ahead); the camera
+    index used to make three."""
+    synthesize, ops, bone_len, cameras = _dispatch_inputs()
+    g = torch.Generator().manual_seed(1)
+    synthesize_dataset.synth_pairs(synthesize, ops, bone_len, cameras, g)  # warm: tables
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        synthesize_dataset.synth_pairs(synthesize, ops, bone_len, cameras, g)
+    names = [e.name for e in prof.events()]
+    assert "synth.dispatch" in names  # the profile saw the dispatch
+    assert names.count("aten::item") == 0
+    assert names.count("aten::_local_scalar_dense") == 0
+
+
+def test_generator_tables_are_uploaded_once_a_device_and_dtype():
+    """head_to_angles and scale_bone_lengths take their constant tables
+    from one cache keyed by (device, dtype): the second call on a device
+    uploads nothing and gets the same tensors, and the outputs equal those
+    of tables made afresh."""
+    cfg = GeneratorConfig()
+    head = torch.randn(8, 35, generator=torch.Generator().manual_seed(0))
+    bone_len = torch.rand(8, 15) + 0.1
+    scaler8 = torch.randint(-200, 200, (8, 8), generator=torch.Generator().manual_seed(1)) / 1e3
+    generator._table.cache_clear()
+    first = (generator.head_to_angles(head, cfg), generator.scale_bone_lengths(bone_len, scaler8))
+    again = (generator.head_to_angles(head, cfg), generator.scale_bone_lengths(bone_len, scaler8))
+    info = generator._table.cache_info()
+    assert (info.misses, info.hits) == (4, 4)  # 4 tables made by the first call, reused
+    assert generator._table("slots", head.device) is generator._table("slots", head.device)
+    assert generator._table("scaler_groups", scaler8.device, torch.float64).dtype == torch.float64
+    (angles, root), scaled = again
+    assert torch.equal(angles, first[0][0]) and torch.equal(root, first[0][1])
+    assert torch.equal(scaled, first[1])
+    # the tables made afresh on every call, as before the cache
+    fresh = head.new_zeros(8, 37).index_copy(
+        -1, torch.as_tensor(generator.NONZERO_SLOTS), torch.tanh(head)[:, :31])
+    fresh = (fresh * torch.as_tensor(generator.GAN_RANGE_SCALE)
+             + torch.as_tensor(generator.GAN_RANGE_MID))
+    assert torch.equal(angles, fresh)
+    groups = torch.as_tensor(generator._SCALER_GROUPS, dtype=scaler8.dtype)
+    assert torch.equal(scaled, bone_len * (1.0 + torch.einsum("gb,...g->...b", groups, scaler8)))
+
+
+@pytest.mark.parametrize("index", ["tensor", "int"])
+def test_dispatch_camera_equals_the_indexed_bank(index):
+    """The camera gathered on the device (index_select) gives exactly what
+    indexing the bank with the camera's number gives, for every camera."""
+    synthesize, ops, bone_len, cameras = _dispatch_inputs(B=8)
+    quats, trans, intrs = cameras
+    rng = np.random.default_rng(3)
+    noise = torch.from_numpy(rng.normal(size=(8, 128)).astype(np.float32))
+    scaler8 = torch.from_numpy((rng.integers(-200, 200, (8, 8)) / 1000.0).astype(np.float32))
+    pose16 = synthesize(ops, bone_len, None, noise=noise, scaler8=scaler8)
+    for i in range(quats.shape[0]):
+        cam_idx = torch.tensor(i) if index == "tensor" else i
+        got = synthesize_dataset.synth_pairs(synthesize, ops, bone_len, cameras, None,
+                                             noise=noise, scaler8=scaler8, cam_idx=cam_idx)
+        cam3d = world_to_camera_batch(pose16, quats[i][None], trans[i][None])
+        intr = intrs[i][None].expand(8, 9)
+        want = (cam3d, project_to_2d(cam3d, intr), intr)
+        assert all(tuple(g.shape) == tuple(w.shape) and torch.equal(g, w)
+                   for g, w in zip(got, want))
 
 
 def test_cpu_run_writes_the_jax_npz(tmp_path):
