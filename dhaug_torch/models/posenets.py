@@ -7,7 +7,8 @@
   ``strided=True`` is the training net, ``strided=False`` the dilated
   evaluation net, with one parameter set between them;
 * :class:`PoseFormer` -- a spatial transformer per frame, a temporal one
-  over frames and a weighted mean of the frames.
+  over frames and a weighted mean of the frames, each transformer in a
+  span (``posenet.spatial``, ``posenet.temporal``; ``utils/profiling``).
 
 Parameter names are the reference's ``state_dict`` keys (the names
 ``dhaug_tpu/utils/transplant.py`` reads), so a reference ``.pth.tar`` and a
@@ -43,6 +44,7 @@ from torch.nn import functional as F
 
 from dhaug_torch.models.blocks import dense, he_normal_, lecun_normal_
 from dhaug_torch.parallel import mesh
+from dhaug_torch.utils.profiling import span
 
 
 def _empty_like_global(x: torch.Tensor, world: int) -> torch.Tensor:
@@ -397,13 +399,15 @@ class PoseFormer(nn.Module):
         Fr, J = self.num_frame, self.num_joints
         x = x.reshape(-1, Fr, J, 2)
         B = x.shape[0]
-        h = self.Spatial_patch_to_embedding(x.reshape(B * Fr, J, 2)) + self.Spatial_pos_embed
-        h = dropout(h, self.p_dropout, self.training, generator)
-        for block in self.Spatial_blocks:
-            h = block(h, generator)
-        h = self.Spatial_norm(h).reshape(B, Fr, -1) + self.Temporal_pos_embed
-        h = dropout(h, self.p_dropout, self.training, generator)
-        for block in self.blocks:
-            h = block(h, generator)
-        h = self.weighted_mean(self.Temporal_norm(h))               # (B, 1, E)
-        return self.head(h).reshape(B, 1, J, 3)
+        with span("posenet.spatial"):
+            h = self.Spatial_patch_to_embedding(x.reshape(B * Fr, J, 2)) + self.Spatial_pos_embed
+            h = dropout(h, self.p_dropout, self.training, generator)
+            for block in self.Spatial_blocks:
+                h = block(h, generator)
+            h = self.Spatial_norm(h).reshape(B, Fr, -1)
+        with span("posenet.temporal"):
+            h = dropout(h + self.Temporal_pos_embed, self.p_dropout, self.training, generator)
+            for block in self.blocks:
+                h = block(h, generator)
+            h = self.weighted_mean(self.Temporal_norm(h))           # (B, 1, E)
+            return self.head(h).reshape(B, 1, J, 3)

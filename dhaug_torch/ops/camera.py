@@ -64,12 +64,34 @@ def clip_unit(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, -one), one)
 
 
+def unit_ratio(X: torch.Tensor) -> torch.Tensor:
+    """The perspective divide ``X[..., :2] / X[..., 2:]`` clamped by
+    :func:`clip_unit`.
+
+    A point at a depth of exactly 0 (a float32 sum can cancel to it) divides
+    to +-inf, which the clamp takes to +-1 and whose gradient the clamp
+    zeroes; but the divide's own gradient there is inf, and 0 x inf is NaN,
+    which one Adam step spreads over every weight of the generator.  Where
+    the gradient is taken, such a point is divided by a depth the gradient
+    does not see: the same value, and the clamp's gradient of 0, as at
+    every point outside it.  Elsewhere values and gradients are the plain
+    divide's.
+    """
+    xy, z = X[..., :2], X[..., 2:]
+    if not (torch.is_grad_enabled() and X.requires_grad):
+        return clip_unit(xy / z)
+    flat = z == 0
+    return clip_unit(torch.where(flat, xy.detach() / z.detach(),
+                                 xy / torch.where(flat, torch.ones_like(z), z)))
+
+
 def project_to_2d(X: torch.Tensor, camera_params: torch.Tensor) -> torch.Tensor:
     """Project camera-space 3D points through the full H36M camera model.
 
     X: (N, ..., 3); camera_params: (N, 9) = [f(2), c(2), k(3), p(2)] (only
     [:9] of a longer record is read).  The perspective divide is clamped to
-    [-1, 1] as the reference does (common/camera.py:85).
+    [-1, 1] as the reference does (common/camera.py:85), by
+    :func:`unit_ratio`.
     """
     params = camera_params[..., :9]
     while params.ndim < X.ndim:
@@ -79,7 +101,7 @@ def project_to_2d(X: torch.Tensor, camera_params: torch.Tensor) -> torch.Tensor:
     k = params[..., 4:7]
     p = params[..., 7:9]
 
-    XX = clip_unit(X[..., :2] / X[..., 2:])
+    XX = unit_ratio(X)
     r2 = torch.sum(XX ** 2, dim=-1, keepdim=True)
     radial = 1.0 + torch.sum(k * torch.cat([r2, r2 ** 2, r2 ** 3], dim=-1),
                              dim=-1, keepdim=True)
@@ -94,4 +116,4 @@ def project_to_2d_linear(X: torch.Tensor, camera_params: torch.Tensor) -> torch.
     params = camera_params[..., :9]
     while params.ndim < X.ndim:
         params = params[:, None]
-    return params[..., :2] * clip_unit(X[..., :2] / X[..., 2:]) + params[..., 2:4]
+    return params[..., :2] * unit_ratio(X) + params[..., 2:4]

@@ -47,10 +47,11 @@ def _misaligned(t):
 # --batch_size 512), 512 x 27 (the default 3,3,3) and 8 x 9 (a ragged last
 # tile of 8); "1027m": inputs 4 bytes past a 16-byte boundary; and a rank's
 # rows of two data-parallel ranks: 512 (the training batch 1024), 2304 (the
-# video clip batch 4608) and 4096 (the synthesis batch 8192); and the
-# benchmark's synthesis batch 65536
+# video clip batch 4608) and 4096 (the synthesis batch 8192); the
+# benchmark's synthesis batch 65536; and 512 x 81, PoseFormer's published
+# receptive field (--architecture 3,3,3,3 --batch_size 512)
 FK_CASES = [1, 1000, 1024, 1027, 8192, 10000, "1027m", 72, 4608, 13824, 512, 2304, 4096,
-            65536]
+            65536, 41472]
 
 
 def _fk_case(case, seed_offset, device):
@@ -165,6 +166,45 @@ def test_video_gan_steps_run_on_both_kernels(device):
     assert {"motion_3d_wasserstein", "motion_2d_wasserstein"} <= set(metrics)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert bool(torch.isfinite(out["g_cost"]))
+
+
+def test_poseformer_train_step_matches_the_reference(device):
+    """One PoseFormer optimizer step at its published widths (embed 32,
+    depth 4, 8 heads, MLP ratio 2, drop path 0.1) on 512 clips of 81
+    frames, the program's ``train_step`` against the plain float32
+    reference (``benchmark/reference/poseformer.py``) from the same weights,
+    clips and generator.  Both run the same float32 products with TF32 off
+    and draw the same stochastic depth masks, so they part only where a
+    reduction sums in another order: the loss to 1e-5, each gradient and
+    each stepped weight to 1e-4 of its leaf's largest gradient or
+    weight."""
+    from benchmark.reference.nets import init_weights
+    from benchmark.reference.poseformer import PoseFormer as Reference
+    from benchmark.reference.steps import posenet_step
+    from dhaug_torch.models.factory import make_posenet
+    from dhaug_torch.train.posenet import train_step
+    from dhaug_torch.train.state import adam_posenet
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    net = make_posenet("mulit_farme_poseformer", architecture="3,3,3,3", flag="train")
+    ref = Reference(81)
+    nets = [net.to(device), ref.to(device)]
+    for n in nets:
+        init_weights([n], torch.Generator(device=device).manual_seed(1))
+    g = torch.Generator(device=device).manual_seed(2)
+    x = 0.3 * torch.randn(512, 81, 16, 2, generator=g, device=device)
+    y = 0.2 * torch.randn(512, 1, 16, 3, generator=g, device=device)
+    y = y - y[..., :1, :]
+    opt, ref_opt = adam_posenet(net.parameters()), adam_posenet(ref.parameters())
+    loss = train_step(net, opt, x, y, 1.0, torch.Generator(device=device).manual_seed(3),
+                      "mpjpe")
+    ref_loss = posenet_step(ref, ref_opt, x, y, 1.0, torch.Generator(device=device).manual_seed(3))
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0)
+    for (name, p), (ref_name, r) in zip(net.named_parameters(), ref.named_parameters()):
+        assert name == ref_name
+        for a, b in ((p.grad, r.grad), (p.detach(), r.detach())):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-12,
+                                       msg=lambda m, name=name: f"{name}: {m}")
 
 
 def _trunk(dense, device, seed=0):

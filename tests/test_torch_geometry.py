@@ -78,6 +78,37 @@ def test_project_to_2d_values_and_clamp_gradient():
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-5, rtol=1e-5)
 
 
+def test_project_to_2d_at_zero_depth_keeps_a_finite_gradient():
+    """A point at a depth of exactly 0 (the video generator's fake clips
+    meet one now and then): the plain divide's value, +-inf clamped to +-1,
+    and the clamp's gradient of 0 where the plain divide's is NaN
+    (0 x inf); every other point as the JAX port's."""
+    rng = np.random.default_rng(4)
+    X = _poses(rng, 4, 0.5) + np.array([0.0, 0.0, 3.0])
+    X[1, 3] = (0.4, -0.7, 0.0)
+    cams = np.concatenate([rng.uniform(0.5, 2.5, (4, 2)), rng.normal(size=(4, 2)) * 0.1,
+                           rng.normal(size=(4, 3)) * 0.1, rng.normal(size=(4, 2)) * 0.01],
+                          axis=1)
+    w = rng.normal(size=(4, 16, 2)).astype(np.float32)
+    Xj, Xt = _pair(X)
+    cj, ct = _pair(cams)
+    Xt.requires_grad_(True)
+    out = t_camera.project_to_2d(Xt, ct)
+    with torch.no_grad():
+        assert torch.equal(out, t_camera.project_to_2d(Xt, ct))
+    assert torch.isfinite(out).all()
+    (gt,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), Xt)
+    assert torch.isfinite(gt).all() and not gt[1, 3].any()
+
+    (plain,) = torch.autograd.grad(t_camera.clip_unit(Xt[..., :2] / Xt[..., 2:]).sum(), Xt)
+    assert torch.isnan(plain[1, 3]).any()
+
+    gj = np.asarray(jax.grad(lambda x: jnp.sum(j_camera.project_to_2d(x, cj) * w))(Xj))
+    others = np.ones((4, 16), bool)
+    others[1, 3] = False
+    np.testing.assert_allclose(gt.numpy()[others], gj[others], atol=1e-5, rtol=1e-5)
+
+
 def test_clip_unit_gradient_matches_jnp_clip():
     x = np.array([-2.0, -1.0, -0.5, 0.0, 1.0, 3.0], np.float32)
     gj = jax.grad(lambda v: jnp.sum(jnp.clip(v, -1.0, 1.0)))(jnp.asarray(x))
