@@ -10,55 +10,104 @@
 //      out = bf16(h) wh + bh
 //    with bf16 x bf16 products, fp32 accumulation, fp32 bias and residual.
 //
-// Bound on an H100 SXM: operations.  At the synthesis batch B = 8192 and
-// D = 1000 the trunk is 2 B (128 D + 6 D^2 + 35 D) = 1.01e11 FLOP, 0.102 ms
-// at 989 TFLOP/s dense bf16; its irreducible bytes (12.3 MB of bf16
-// weights, 4.2 MB of noise, 1.1 MB of output) take 5.3 us at 3.35 TB/s.
+// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s), per
+// layer at B = 65536 rows and D = 1000 (padded to 1024), with the storage
+// types below:
+//    prelude   K = 128 GEMM, 17 GFLOP (0.017 ms); reads the fp32 noise and
+//              writes fp32 h and its bf16 shadow, 0.44 GB (0.13 ms): bytes
+//    layer a   137 GFLOP (0.139 ms); reads the bf16 shadow and writes bf16
+//              y, 0.27 GB (0.08 ms): operations
+//    layer b   137 GFLOP (0.139 ms); reads bf16 y and the fp32 residual and
+//              writes fp32 h and the shadow, 0.80 GB (0.24 ms): bytes
+//    head      4.7 GFLOP; reads the shadow, 0.14 GB (0.04 ms): bytes
+// The trunk needs 0.82 ms of operations and 1.05 ms of bytes a layer at a
+// time; the algorithmic bound (each trunk input read once, its output
+// written once) is the operations' 0.817 ms.  A layer comes near the larger
+// of its two only if its epilogue's traffic runs while the tensor cores
+// work.  On the card (one H100 at 700 W) the kernel below takes 1.90-1.95
+// ms a trunk at B = 65536 (prelude 0.20, layer a 0.21, layer b 0.35, the
+// last layer b 0.29, head 0.05 ms) and 0.28 ms at 8192; the non-persistent
+// kernel of 128-row tiles it replaced took 2.09-2.19 and 0.30.  What paces
+// it now is L2: each D x D layer moves ~2-3 GB through it (operand tiles,
+// the epilogue's traffic, device memory's fills and write-backs), and
+// prefetching layer b's residual into L2 made layer b 15% slower.
 //
 // Design: one GEMM with a fused epilogue, launched once per layer (8
 // launches a trunk, all from dhtrunk_forward):
 //    C[m, n] = epilogue(sum_k A[m, k] W[n, k] + bias[n])
 // with A a bf16 activation (M, K) and W the bf16 weight in nn.Linear's
 // (N, K) layout: both K-major operands of wgmma as they lie in memory.
+//  - Persistent blocks: a launch takes at most one block an SM
+//    (min(tiles, SMs); in clusters, as many pairs as fit at once), and each
+//    block walks a static schedule of output tiles, column tile fastest
+//    (trunk_sm90.cuh: unit_origin), so the column tiles of one row panel
+//    run at once on neighbouring blocks and read their A rows from L2.
+//    With fewer tiles than SMs each block takes one tile.
+//  - Warp specialization: a block has a producer warpgroup and two
+//    consumer warpgroups.  Two schedules share the code:
+//     - ping-pong (the prelude, layer b, the head, and layer a at small
+//       batches): each consumer warpgroup owns a 64-row tile in turn
+//       (tiles j, j + 2, ... of the block's list), and the tensor cores go
+//       to one warpgroup at a time: a warpgroup waits at a named barrier
+//       until the other has issued the wgmmas of the tile before its own,
+//       issues its whole mainloop and hands the turn on before it waits for
+//       its last wgmmas.  So one warpgroup's epilogue runs while the
+//       other's wgmmas run.
+//     - cooperative (layer a at large batches, kLargeTilesPerSm): both
+//       warpgroups take 64 rows each of one 128-row tile, so each W
+//       k-block feeds 128 rows; layer a's epilogue is light (bf16 y only),
+//       so little is lost by running it between mainloops.
 //  - Tensor cores: wgmma.mma_async m64n256k16, bf16 x bf16 -> fp32, both
 //    operands read from shared memory through 128-byte-swizzle
-//    descriptors (trunk_sm90.cuh).  A block computes a 128 x 256 tile with
-//    two consumer warpgroups of 64 x 256 (128 fp32 accumulators a thread).
-//    At M = 8192, N = 1024 that is 64 x 4 = 256 tiles, 1.94 waves over the
-//    132 SMs (one 194 KiB block an SM); the last wave's 124 tiles leave 8
-//    SMs idle.  The head, 35 columns, takes 128 x 48 tiles (m64n48k16)
-//    instead of computing 256.  A 64-wide k-block is 4 wgmmas a
-//    warpgroup; each k-block's group is committed and the one before it
-//    waited for (wait_group 1), so the tensor cores always have the next
-//    group queued.
-//  - Operand loads: one thread of a producer warpgroup issues TMA loads
+//    descriptors (trunk_sm90.cuh); a warpgroup's 64 x 256 fp32 sum is 128
+//    registers a thread.  The head, 35 columns, takes 64 x 48 tiles
+//    (m64n48k16).  A 64-wide k-block is 4 wgmmas; each k-block's group is
+//    committed and the one before it waited for (wait_group 1), so the
+//    tensor cores always have the next group queued.  A row's sums are the
+//    same instructions in the same k order whatever schedule, tile, block
+//    or batch takes it, so the output is bitwise that of the kernel this
+//    one replaced.
+//  - Operand loads: one thread of the producer warpgroup issues TMA loads
 //    (cp.async.bulk.tensor, __grid_constant__ CUtensorMap descriptors
-//    encoded on the host by each call) of the A (128 x 64) and W (256 x 64)
-//    tiles into a ring of 4 stages with a full and an empty mbarrier each;
-//    no load passes through registers and no block-wide barrier runs in
-//    the K loop.  The producer warpgroup gives up registers (setmaxnreg
-//    40), the consumers take them (232): the layer b epilogue spills at the
-//    168 a thread that a block of 384 (or of 288) threads starts with.
+//    encoded on the host by each call) of the A (64 or 128 x 64) and W
+//    (BN x 64) tiles into a ring of stages (3-5, 8 in the head), each
+//    with a full and an empty mbarrier,
+//    walking the block's tiles in the order the consumers take them.  It
+//    runs ahead across tiles, so no mainloop starts from an empty ring,
+//    and no block-wide barrier runs after set-up.  The producer warpgroup
+//    gives up registers (setmaxnreg 40), the consumers take them (232).
 //    TMA zero-fills rows past M and N (the ragged batch, the head's 35
 //    rows, D = 64 under a 256-wide tile).  The prelude's A is the fp32
-//    noise (K = 128): each consumer warpgroup loads its 64 rows, rounds
-//    them to bf16 and writes them into the two A stages in the same
-//    swizzled layout TMA would write, so the trunk needs no extra launch.
+//    noise (K0 <= 256): each consumer warpgroup loads its tile's rows,
+//    rounds them to bf16 and writes them into its own A buffer in the
+//    swizzled layout TMA would write, while the other warpgroup's wgmmas
+//    run, so the trunk needs no extra launch.
+//  - Clusters (layer b at large batches): two blocks on neighbouring SMs
+//    take the two 64-row tiles of a 128-row pair of one column tile: each
+//    loads its own A and half of the W tile, multicast into both blocks'
+//    shared memory, so a 64-row tile costs L2 no more W bytes than a
+//    128-row tile of two warpgroups does.  A consumer warp frees a stage in
+//    both blocks (the empty barrier counts 4 warps of each), with a release
+//    at the scope of its own block: one at the cluster's scope also waits
+//    for the warp's earlier epilogue stores, and made the layer twice as
+//    slow.
 //  - bf16 activations between layers: every activation whose next consumer
 //    rounds it to bf16 is stored as bf16, rounded to nearest even in the
 //    epilogue exactly as the next layer would round it (so the result is
 //    the same function, not an approximation).  Layer a of each block
 //    stores y as bf16 only; the prelude and layer b store h in fp32 (the
 //    next block's residual) and its bf16 shadow (the next GEMM's A); the
-//    last block skips the fp32 h, which nothing reads.  Traffic at
-//    B = 8192: ~0.45 GB a trunk, down from ~0.57 GB with fp32 activations.
-//  - Epilogue: the block's biases are read once into shared memory.  A
-//    first pass adds the fp32 bias and then the fp32 residual in wgmma's
-//    accumulator layout, with only loads, so a batch of residual loads is
-//    in flight at once (h is read and written in place, so a load cannot
-//    move above a store).  A second pass applies ReLU; two shuffles give
-//    each lane 4 consecutive columns of one row, a 16-byte fp32 store, and
-//    two more give it one 8-column group, a 16-byte bf16 store.  The
+//    last block skips the fp32 h, which nothing reads.
+//  - Epilogue through shared memory and TMA (store_tile): a 32-column chunk
+//    at a time, acc + fp32 bias (+ the fp32 residual) and ReLU go into a
+//    chunk buffer in the swizzled layout of the output's tensor map, and one
+//    thread stores the chunk by TMA; layer b's residual chunks arrive in the
+//    same buffers by TMA, the first two while the tile's mainloop runs.  On
+//    the card, 16-byte stores from registers made the epilogue outlast the
+//    other warpgroup's mainloop: layer b took 0.39 ms and the prelude 0.23
+//    ms at B = 65536, against 0.35 and 0.20 with TMA stores (loading the
+//    residual by TMA rather than into registers measured the same, and
+//    keeps every device-memory access of the epilogue on TMA).  The
 //    head's (B, 35) fp32 rows are 140 bytes apart, not a multiple of 16,
 //    so it stores masked scalars from the accumulator layout.
 //  - Padding: the wrapper pads every K and the hidden width to a multiple
@@ -75,29 +124,83 @@
 
 namespace {
 
-constexpr int BM = 128;                      // tile rows: 2 consumer warpgroups x 64
-constexpr int kHiddenBN = 256;               // hidden layers' tile columns: m64n256k16
-constexpr int kHeadBN = 48;                  // the head's 35 columns: m64n48k16
-constexpr int BK = 64;                       // k-block: one 128-byte swizzled row
-constexpr int kStages = 4;                   // TMA ring depth
-constexpr int kConsumers = 2;                // consumer warpgroups
-constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kTileA = BM * BK * 2;          // 16 KB
-
-// the ring (A and W tiles), the bias row, the barriers, and slack to align
-// the ring to 1024 bytes: 194 KiB at BN = 256, 89 KiB at BN = 48
-constexpr int smem_bytes(int bn) {
-  return kStages * (kTileA + bn * BK * 2) + bn * 4 + 2 * kStages * 8 +
-         static_cast<int>(dhtrunk::kAtomBytes);
-}
-constexpr int kTensorMapError = 0x10000;     // + the CUresult of a failed encode
-
 enum Epilogue : int {
   kPrelude = 0,   // A = fp32 noise; relu; store fp32 h and its bf16 shadow
   kHidden = 1,    // relu; store bf16 y
   kResidual = 2,  // relu((acc + b) + h); store fp32 h (if asked) and the shadow
   kHead = 3,      // acc + b; store fp32 (B, N), masked
 };
+
+constexpr int BM = 64;                       // tile rows: one consumer warpgroup's wgmma
+constexpr int kHiddenBN = 256;               // hidden layers' tile columns: m64n256k16
+constexpr int kHeadBN = 48;                  // the head's 35 columns: m64n48k16
+constexpr int BK = 64;                       // k-block: one 128-byte swizzled row
+constexpr int kConsumers = 2;                // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kTileA = BM * BK * 2;          // 8 KB
+constexpr int kMaxNoiseBlocks = 4;           // the prelude's K0 <= 4 k-blocks
+constexpr int kMaxStages = 8;
+constexpr int kSmemLimit = 232448;           // dynamic shared memory a block may take
+// A large batch: each SM walks more than this many 64-row tiles of a D x D
+// layer.  There layer a's two warpgroups share 128-row tiles (cooperative:
+// each W k-block feeds 128 rows) and layer b runs in clusters of two blocks
+// that share each W k-block by multicast; both halve the W bytes a row
+// takes from L2, which pace a long run of tiles.  Below it the cooperative
+// tiles and the clusters' coupled rings cost more than they save.  Measured
+// on an H100 (D = 1000): at B = 65536 (31 tiles an SM) the cooperative
+// layer a took 0.205 ms against 0.221 in ping-pong and the last layer b
+// 0.29 ms in clusters against 0.33; at 32768 (15.5) both alike; at 8192
+// and 4096 the cooperative layer a 8% and 20% slower, clusters 4-20%.
+constexpr int kLargeTilesPerSm = 16;
+constexpr int kChunkCols = 32;               // columns of one TMA store box
+constexpr int kStoreF32 = BM * kChunkCols * 4;  // 8 KB: a chunk's fp32 box
+constexpr int kStoreBufs = 2;                // chunk buffers a consumer warpgroup
+static_assert(kStoreBufs >= 2,
+              "layer b loads a chunk's residual while the chunk before is stored");
+constexpr int kNoiseBar = 1;                 // named barriers: + wg, a warpgroup's noise
+constexpr int kTurnBar = 3;                  // + wg: this warpgroup's turn at the tensor cores
+constexpr int kStoreBar = 5;                 // + wg: a warpgroup's staging buffers
+constexpr int kTensorMapError = 0x10000;     // + the CUresult of a failed encode
+
+// a ring stage: the A tile of a block tile of wgt x 64 rows (the prelude
+// stages its own) and the W tile
+__host__ __device__ constexpr int stage_bytes(int bn, int epi, int wgt) {
+  return (epi == kPrelude ? 0 : wgt * kTileA) + bn * BK * 2;
+}
+// the prelude's A buffers, one a consumer warpgroup
+__host__ __device__ constexpr int own_a_bytes(int epi) {
+  return epi == kPrelude ? kConsumers * kMaxNoiseBlocks * kTileA : 0;
+}
+// The epilogue's staging: kStoreBufs chunk buffers a consumer warpgroup,
+// each the chunk's fp32 box (none in layer a, which stores bf16 y only),
+// then its bf16 box.
+__host__ __device__ constexpr int f32_box_bytes(int epi) { return epi == kHidden ? 0 : kStoreF32; }
+__host__ __device__ constexpr int chunk_buf_bytes(int epi) {
+  return f32_box_bytes(epi) + BM * kChunkCols * 2;
+}
+__host__ __device__ constexpr int staging_bytes(int epi) {
+  return epi == kHead ? 0 : kConsumers * kStoreBufs * chunk_buf_bytes(epi);
+}
+// the barriers (the ring's, and one a chunk buffer) and slack to align the
+// ring to 1024 bytes
+constexpr int kFixedBytes =
+    (2 * kMaxStages + kConsumers * kStoreBufs) * 8 + static_cast<int>(dhtrunk::kAtomBytes);
+// as many ring stages as the rest leaves room for, at most kMaxStages: 4 in
+// layer b and the cooperative layer a, 5 in the ping-pong layer a, 3 in the
+// prelude, 8 in the head
+__host__ __device__ constexpr int ring_stages(int bn, int epi, int wgt) {
+  return (kSmemLimit - kFixedBytes - own_a_bytes(epi) - staging_bytes(epi)) /
+                     stage_bytes(bn, epi, wgt) <
+                 kMaxStages
+             ? (kSmemLimit - kFixedBytes - own_a_bytes(epi) - staging_bytes(epi)) /
+                   stage_bytes(bn, epi, wgt)
+             : kMaxStages;
+}
+// 209 KiB (217 KiB for the ping-pong layer a, 113 KiB for the head)
+__host__ __device__ constexpr int smem_bytes(int bn, int epi, int wgt) {
+  return ring_stages(bn, epi, wgt) * stage_bytes(bn, epi, wgt) + own_a_bytes(epi) +
+         staging_bytes(epi) + kFixedBytes;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -208,26 +311,87 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[24], uint64_t desc_a, uint6
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// arrive on the barrier at `bar` (a shared address of this block) in block
+// `cta` of the cluster.  The release is the default one, at the scope of
+// the block: a release at the cluster's scope would also wait for this
+// thread's earlier global stores (the last epilogue's) to reach L2, which
+// held each k-block of the mainloop and made the kernel twice as slow.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// TMA with multicast: the box lands at the same shared offset `dst` in each
+// block of `mask`, completing the transaction bytes of each one's `bar`
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                      int c1, uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// TMA store: the box at (c0 = column, c1 = row) of `map` from shared `src`,
+// in this thread's bulk group; rows and columns past the map's are dropped
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// every thread of every block of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // two floats -> bf16x2, each rounded to nearest even; lo at the lower address
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The prelude's A: this warpgroup's 64 rows of the fp32 noise (K columns,
-// K <= kStages * BK), rounded to bf16 and written into the A stages in the
-// layout a TMA load with the 128-byte swizzle would give.
+// The prelude's A: the 64 rows from m0 of the fp32 noise (K columns,
+// K <= kMaxNoiseBlocks * BK), rounded to bf16 and written into a_tiles, one
+// k-block after another, in the layout a TMA load with the 128-byte swizzle
+// would give.  t is the thread in its warpgroup.
 __device__ __forceinline__ void stage_noise(uint8_t* a_tiles, const float* __restrict__ noise,
-                                            int m0, int wg, int t, int M, int K) {
-  constexpr int kBatch = 8;   // float4 loads a thread keeps in flight
+                                            int m0, int t, int M, int K) {
+  constexpr int kBatch = 16;  // float4 loads a thread keeps in flight: all of K = 128
   const int per_row = K / 4;  // float4 a row
-  const int total = 64 * per_row;
+  const int total = BM * per_row;
   for (int base = t; base < total; base += 128 * kBatch) {
     float4 x[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int idx = base + 128 * u;
-      const int m = m0 + 64 * wg + idx / per_row;
+      const int m = m0 + idx / per_row;
       x[u] = idx < total && m < M
                  ? __ldg(reinterpret_cast<const float4*>(noise + static_cast<size_t>(m) * K +
                                                          4 * (idx % per_row)))
@@ -237,7 +401,7 @@ __device__ __forceinline__ void stage_noise(uint8_t* a_tiles, const float* __res
     for (int u = 0; u < kBatch; ++u) {
       const int idx = base + 128 * u;
       if (idx < total) {
-        const int r = 64 * wg + idx / per_row;  // row in the block's tile
+        const int r = idx / per_row;  // row in the tile
         const int c = 4 * (idx % per_row);
         *reinterpret_cast<uint2*>(a_tiles + (c / BK) * kTileA +
                                   dhtrunk::sw128_offset(r, (c % BK) * 2)) =
@@ -247,186 +411,259 @@ __device__ __forceinline__ void stage_noise(uint8_t* a_tiles, const float* __res
   }
 }
 
-// One layer: C = epilogue(A W^T + bias) for a 128 x BN tile per block.
-// resid and out_f32 may be the same buffer (layer b updates h in place):
-// each element is read and written by the one thread that owns it.
+// Layer b's residual chunk ch of the tile at (m0, n0), by TMA, into its
+// buffer of this warpgroup's staging, completing that buffer's barrier
+__device__ __forceinline__ void load_residual(const CUtensorMap* tm_f32, uint8_t* staging,
+                                              uint32_t rbar0, int ch, int m0, int n0) {
+  const uint32_t bar = rbar0 + 8 * (ch % kStoreBufs);
+  mbar_expect_tx(bar, kStoreF32);
+  tma_load_2d(smem_u32(staging + (ch % kStoreBufs) * chunk_buf_bytes(kResidual)), tm_f32,
+              n0 + ch * kChunkCols, m0, bar);
+}
+
+// The epilogue of the 64 x BN tile at (m0, n0) whose sums thread t of
+// warpgroup wg holds in wgmma's accumulator layout.
+//  - The head: acc + bias, masked fp32 stores from that layout.
+//  - The others, a 32-column chunk at a time: acc + bias (+ the fp32
+//    residual, layer b), ReLU, then this thread's pairs into a chunk buffer
+//    of this warpgroup's staging in the swizzled layout of the output maps
+//    (fp32: 128-byte rows, bf16: 64-byte rows; no bank conflict beyond what
+//    the bytes need), and one thread stores the chunk's boxes by TMA.  The
+//    chunk buffers take turns; a buffer is written again once the store
+//    from it has read it.  Layer b's residual chunks arrive in the fp32
+//    half of the buffers by TMA (the first ones while the tile's mainloop
+//    runs, the later ones as buffers come free), and the result overwrites
+//    them in place; `rpar` holds the parity each buffer's barrier waits
+//    for next.  No thread loads or stores device memory itself, so the
+//    epilogue's traffic runs as deep as TMA takes it.
 template <int BN, int EPI>
+__device__ __forceinline__ void store_tile(float (&acc)[BN / 2], int m0, int n0, int t, int wg,
+                                           const float* __restrict__ bias, float* out_f32,
+                                           const CUtensorMap* tm_f32, const CUtensorMap* tm_bf16,
+                                           uint8_t* staging, uint32_t rbar0, uint32_t& rpar,
+                                           int M, int N) {
+  if constexpr (EPI == kHead) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = m0 + dhtrunk::acc_row(t, i);
+      const int c = n0 + dhtrunk::acc_col(t, i);
+      if (r < M && c < N) out_f32[static_cast<size_t>(r) * N + c] = acc[i] + __ldg(bias + c);
+    }
+  } else {
+    constexpr int kGroups = kChunkCols / 8;
+    const int chunks = (N - n0 < BN ? N - n0 : BN) / kChunkCols;
+    const int r_lo = dhtrunk::acc_row(t, 0);  // this thread's rows in the tile: r_lo, r_lo + 8
+#pragma unroll
+    for (int ch = 0; ch < BN / kChunkCols; ++ch) {
+      if (ch >= chunks) break;  // the same for the whole warpgroup
+      uint8_t* buf = staging + (ch % kStoreBufs) * chunk_buf_bytes(EPI);
+      if constexpr (EPI == kResidual) {
+        mbar_wait(rbar0 + 8 * (ch % kStoreBufs), (rpar >> (ch % kStoreBufs)) & 1);
+        rpar ^= 1u << (ch % kStoreBufs);
+      } else {
+        if (t == 0) bulk_wait_read<kStoreBufs - 1>();
+        named_sync(kStoreBar + wg, 128);
+      }
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int j = ch * kGroups + g;
+        const int c = 8 * g + 2 * (t & 3);  // column in the chunk
+        const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n0 + ch * kChunkCols + c));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float2* slot =
+              reinterpret_cast<float2*>(buf + dhtrunk::sw128_offset(r_lo + 8 * e, 4 * c));
+          float x0 = acc[4 * j + 2 * e] + b.x, x1 = acc[4 * j + 2 * e + 1] + b.y;
+          if constexpr (EPI == kResidual) {
+            const float2 h = *slot;
+            x0 += h.x;
+            x1 += h.y;
+          }
+          x0 = fmaxf(x0, 0.f);
+          x1 = fmaxf(x1, 0.f);
+          if constexpr (EPI != kHidden) *slot = make_float2(x0, x1);
+          *reinterpret_cast<uint32_t*>(buf + f32_box_bytes(EPI) +
+                                       dhtrunk::sw64_offset(r_lo + 8 * e, 2 * c)) =
+              pack_bf16x2(x0, x1);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+      named_sync(kStoreBar + wg, 128);
+      if (t == 0) {
+        if (EPI != kHidden && out_f32 != nullptr)
+          tma_store_2d(tm_f32, smem_u32(buf), n0 + ch * kChunkCols, m0);
+        tma_store_2d(tm_bf16, smem_u32(buf + f32_box_bytes(EPI)), n0 + ch * kChunkCols, m0);
+        bulk_commit();
+        if constexpr (EPI == kResidual) {
+          // the store of the chunk before has read its buffer: the residual
+          // kStoreBufs - 1 chunks ahead goes there
+          if (ch >= 1 && ch - 1 + kStoreBufs < chunks) {
+            bulk_wait_read<1>();
+            load_residual(tm_f32, staging, rbar0, ch - 1 + kStoreBufs, m0, n0);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One layer, persistent: C = epilogue(A W^T + bias) over 64 WGT x BN
+// tiles, WGT consumer warpgroups a tile (1: ping-pong, 2: cooperative).
+// CL blocks a cluster share each k-block's W tile by multicast.
+template <int BN, int EPI, int CL, int WGT>
 __global__ void __launch_bounds__(kThreads, 1)
 trunk_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
-                  const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ noise,
-                  const float* __restrict__ bias, const float* resid, float* out_f32,
-                  __nv_bfloat16* __restrict__ out_bf16,
-                  int M, int N, int K) {
+                  const __grid_constant__ CUtensorMap tm_w,
+                  const __grid_constant__ CUtensorMap tm_f32,
+                  const __grid_constant__ CUtensorMap tm_bf16, const float* __restrict__ noise,
+                  const float* __restrict__ bias, float* out_f32, int M, int N, int K) {
   static_assert(EPI == kHead || BN % 64 == 0, "the stores pair 8-column groups, 8 at a time");
-  constexpr int kTileB = BN * BK * 2;
+  static_assert(CL == 1 || (EPI != kPrelude && (BN / CL) % 8 == 0),
+                "a block's W slice is whole 8-row swizzle atoms; the prelude has no A to load");
+  constexpr int S = ring_stages(BN, EPI, WGT);
+  constexpr bool kPingPong = WGT == 1;
+  constexpr int TM = BM * WGT;  // a block tile's rows
+  constexpr int kStageA = EPI == kPrelude ? 0 : WGT * kTileA;
+  constexpr int kStage = stage_bytes(BN, EPI, WGT);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment of the shared address
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t align = dhtrunk::kAtomBytes;
   uint8_t* smem = smem_raw + (((raw + align - 1) & ~(align - 1)) - raw);
-  uint8_t* tiles_a = smem;
-  uint8_t* tiles_b = smem + kStages * kTileA;
-  float* bias_s = reinterpret_cast<float*>(tiles_b + kStages * kTileB);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(bias_s + BN);
-  const uint32_t sa = smem_u32(tiles_a), sb = smem_u32(tiles_b);
-  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+  uint8_t* own_a = smem + S * kStage;
+  uint8_t* staging = own_a + own_a_bytes(EPI);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(staging + staging_bytes(EPI));
+  const uint32_t ring = smem_u32(smem);
+  // the ring's full and empty barriers, then each warpgroup's residual buffers'
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * S, resid0 = empty0 + 8 * S;
 
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int rank = CL == 1 ? 0 : static_cast<int>(cluster_rank());
+  const int worker = blockIdx.x / CL, workers = gridDim.x / CL;
+  const int mine = dhtrunk::worker_units(worker, workers, dhtrunk::unit_count(M, N, TM * CL, BN));
   const int kblocks = K / BK;
-  for (int i = threadIdx.x; i < BN; i += kThreads) bias_s[i] = n0 + i < N ? bias[n0 + i] : 0.f;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);                   // the producer's expect_tx
-      mbar_init(empty0 + 8 * s, kConsumers * 128);   // every consumer thread
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);        // the producer's expect_tx
+      // the consuming warpgroups' warps, in each block
+      mbar_init(empty0 + 8 * s, 4 * WGT * CL);
     }
+    if (EPI == kResidual)  // each chunk buffer's residual load: its expect_tx
+      for (int i = 0; i < kConsumers * kStoreBufs; ++i) mbar_init(resid0 + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CL > 1) cluster_sync();  // the peer's barriers exist before anything signals them
 
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
-    // producer warpgroup: one thread keeps the ring full; the warpgroup
-    // hands its registers to the consumers
+    // producer warpgroup: one thread keeps the ring full, tile after tile;
+    // the warpgroup hands its registers to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128) {
-      const uint32_t bytes = (EPI == kPrelude ? 0 : kTileA) + kTileB;
-      for (int kb = 0, s = 0, phase = 0; kb < kblocks; ++kb) {
-        mbar_wait(empty0 + 8 * s, phase ^ 1);  // the first pass finds every stage free
-        mbar_expect_tx(full0 + 8 * s, bytes);
-        if (EPI != kPrelude) tma_load_2d(sa + s * kTileA, &tm_a, kb * BK, m0, full0 + 8 * s);
-        tma_load_2d(sb + s * kTileB, &tm_w, kb * BK, n0, full0 + 8 * s);
-        if (++s == kStages) {
+      for (int j = 0, s = 0, phase = 0; j < mine; ++j) {
+        int m0, n0;
+        dhtrunk::unit_origin(worker, workers, j, N, TM * CL, BN, &m0, &n0);
+        m0 += rank * TM;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          const uint32_t full = full0 + 8 * s, stage = ring + s * kStage;
+          mbar_wait(empty0 + 8 * s, phase ^ 1);  // the first pass finds every stage free
+          mbar_expect_tx(full, kStage);          // every block's W slice lands in each block
+          if constexpr (EPI != kPrelude) tma_load_2d(stage, &tm_a, kb * BK, m0, full);
+          if constexpr (CL == 1) {
+            tma_load_2d(stage + kStageA, &tm_w, kb * BK, n0, full);
+          } else {
+            constexpr int kSlice = BN / CL;
+            tma_load_2d_multicast(stage + kStageA + rank * kSlice * dhtrunk::kRowBytes, &tm_w,
+                                  kb * BK, n0 + rank * kSlice, full, (1u << CL) - 1);
+          }
+          if (++s == S) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    // no block leaves while its peer may still multicast into it or free
+    // its stages (each branch ends on its own: setmaxnreg wants the two
+    // never to rejoin)
+    if constexpr (CL > 1) cluster_sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int t = threadIdx.x % 128;
+    const bool warp_leader = (t & 31) == 0;
+    uint8_t* noise_tiles = own_a + wg * kMaxNoiseBlocks * kTileA;
+    uint8_t* my_staging = staging + wg * kStoreBufs * chunk_buf_bytes(EPI);
+    const uint32_t my_resid = resid0 + 8 * kStoreBufs * wg;
+    uint32_t rpar = 0;  // the parity each residual buffer waits for next
+    float acc[BN / 2];
+    // frees stage s in every block of the cluster, once this warp's wgmmas
+    // that read it are done
+    auto release = [&](int s) {
+      if (!warp_leader) return;
+      if constexpr (CL == 1) {
+        mbar_arrive(empty0 + 8 * s);
+      } else {
+#pragma unroll
+        for (int c = 0; c < CL; ++c) mbar_arrive_cluster(empty0 + 8 * s, c);
+      }
+    };
+    for (int j = kPingPong ? wg : 0; j < mine; j += kPingPong ? kConsumers : 1) {
+      int m0, n0;
+      dhtrunk::unit_origin(worker, workers, j, N, TM * CL, BN, &m0, &n0);
+      m0 += rank * TM + (kPingPong ? 0 : wg * BM);  // this warpgroup's 64 rows
+      if constexpr (EPI == kPrelude) {
+        stage_noise(noise_tiles, noise, m0, t, M, K);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        named_sync(kNoiseBar + wg, 128);                                // this warpgroup
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      // the tensor cores are this warpgroup's once the tile before this
+      // one (the other warpgroup's) has issued its wgmmas
+      if (kPingPong && j > 0) named_sync(kTurnBar + wg, 256);
+
+      const int first = j * kblocks;  // this tile's first k-block in the ring's sequence
+      int s = first % S, phase = (first / S) & 1;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(full0 + 8 * s, phase);
+        fence_acc(acc);
+        wgmma_fence();
+        const uint32_t a = EPI == kPrelude ? smem_u32(noise_tiles + kb * kTileA)
+                                            : ring + s * kStage + (kPingPong ? 0 : wg * kTileA);
+        const uint32_t b = ring + s * kStage + kStageA;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_k16(acc, dhtrunk::sw128_desc(a + 32 * kk), dhtrunk::sw128_desc(b + 32 * kk));
+        wgmma_commit();
+        if constexpr (EPI == kResidual) {
+          if (kb == 0 && t == 0) {
+            // the tile's first residual chunks load while its mainloop runs,
+            // once the last tile's stores have read their buffers
+            bulk_wait_read<0>();
+            const int chunks = (N - n0 < BN ? N - n0 : BN) / kChunkCols;
+            for (int ch = 0; ch < kStoreBufs && ch < chunks; ++ch)
+              load_residual(&tm_f32, my_staging, my_resid, ch, m0, n0);
+          }
+        }
+        wgmma_wait<1>();  // the previous k-block's group has finished reading its stage
+        fence_acc(acc);
+        if (kb > 0) release((s + S - 1) % S);
+        if (++s == S) {
           s = 0;
           phase ^= 1;
         }
       }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int t = threadIdx.x % 128;
-    float acc[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-
-    if (EPI == kPrelude) {
-      // kblocks <= kStages (the host checks): stage kb holds k-block kb
-      stage_noise(tiles_a, noise, m0, wg, t, M, K);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // this warpgroup
-    }
-
-    // this warpgroup's 64 rows of the A tile start 64 x 128 B = 8 KB in
-    const uint32_t a_off = wg * 64 * dhtrunk::kRowBytes;
-    int prev = 0;
-    for (int kb = 0, s = 0, phase = 0; kb < kblocks; ++kb) {
-      mbar_wait(full0 + 8 * s, phase);
+      // the next tile of this block is the other warpgroup's: its turn
+      if (kPingPong && j + 1 < mine) named_arrive(kTurnBar + (wg ^ 1), 256);
+      wgmma_wait<0>();
       fence_acc(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma_k16(acc, dhtrunk::sw128_desc(sa + s * kTileA + a_off + 32 * kk),
-                  dhtrunk::sw128_desc(sb + s * kTileB + 32 * kk));
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous k-block's group has finished reading its stage
-      fence_acc(acc);
-      if (kb > 0) mbar_arrive(empty0 + 8 * prev);
-      prev = s;
-      if (++s == kStages) {
-        s = 0;
-        phase ^= 1;
-      }
+      release((s + S - 1) % S);
+      store_tile<BN, EPI>(acc, m0, n0, t, wg, bias, out_f32, &tm_f32, &tm_bf16, my_staging,
+                          my_resid, rpar, M, N);
     }
-    wgmma_wait<0>();
-    fence_acc(acc);
-
-    const int lane = t & 31;
-    const int row0 = m0 + 64 * wg;  // first row of this warpgroup's tile
-    if constexpr (EPI == kHead) {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int r = row0 + dhtrunk::acc_row(t, i);
-        const int c = dhtrunk::acc_col(t, i);
-        if (r < M && n0 + c < N)
-          out_f32[static_cast<size_t>(r) * N + n0 + c] = acc[i] + bias_s[c];
-      }
-    } else {
-      // Pass 1, in the accumulator layout: acc + bias, then + the fp32
-      // residual.  It loads and never stores, so the compiler may keep a
-      // whole batch of residual loads in flight (out_f32 and resid alias,
-      // so no load could move above a store of pass 2).  A quad of lanes
-      // reads 32 contiguous bytes of a row: whole sectors.
-      const int r_lo = row0 + dhtrunk::acc_row(t, 0);  // this thread's rows: r_lo, r_lo + 8
-#pragma unroll
-      for (int j0 = 0; j0 < BN / 8; j0 += 8) {
-        float2 h[8][2];
-        if constexpr (EPI == kResidual) {
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int c = n0 + dhtrunk::acc_col(t, 4 * (j0 + u));
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int r = r_lo + 8 * e;
-              const float* src = resid + static_cast<size_t>(r) * N + c;
-              h[u][e] = r < M && c < N ? *reinterpret_cast<const float2*>(src)
-                                       : make_float2(0.f, 0.f);
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int j = j0 + u;
-          const float2 b = *reinterpret_cast<const float2*>(bias_s + dhtrunk::acc_col(t, 4 * j));
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            acc[4 * j + 2 * e] += b.x;
-            acc[4 * j + 2 * e + 1] += b.y;
-            if constexpr (EPI == kResidual) {
-              acc[4 * j + 2 * e] += h[u][e].x;
-              acc[4 * j + 2 * e + 1] += h[u][e].y;
-            }
-          }
-        }
-      }
-
-      // Pass 2: ReLU, the lane exchanges and the 16-byte stores.
-      const int row = row0 + dhtrunk::paired_row(t);
-      const bool row_ok = row < M;
-      const bool odd = lane & 1, hi = lane & 2;
-#pragma unroll
-      for (int jj = 0; jj < BN / 16; ++jj) {
-        uint32_t packed[4];  // bf16 of column groups 2 jj and 2 jj + 1
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = 2 * jj + half;
-          const float x[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
-          float s[2], r[2], v[4];
-          dhtrunk::halves_send(x, odd, s);
-          r[0] = __shfl_xor_sync(0xffffffffu, s[0], 1);
-          r[1] = __shfl_xor_sync(0xffffffffu, s[1], 1);
-          dhtrunk::halves_take(x, r, odd, v);
-          const int c = dhtrunk::paired_col(t, j);
-          const size_t o = static_cast<size_t>(row) * N + n0 + c;
-          const bool ok = row_ok && n0 + c < N;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) v[e] = fmaxf(v[e], 0.f);
-          if (EPI != kHidden && out_f32 != nullptr && ok)
-            *reinterpret_cast<float4*>(out_f32 + o) = make_float4(v[0], v[1], v[2], v[3]);
-          packed[2 * half] = pack_bf16x2(v[0], v[1]);
-          packed[2 * half + 1] = pack_bf16x2(v[2], v[3]);
-        }
-        uint32_t s[2], r[2], g[4];
-        dhtrunk::halves_send(packed, hi, s);
-        r[0] = __shfl_xor_sync(0xffffffffu, s[0], 2);
-        r[1] = __shfl_xor_sync(0xffffffffu, s[1], 2);
-        dhtrunk::halves_take(packed, r, hi, g);
-        const int c = 8 * (2 * jj + (hi ? 1 : 0));
-        if (row_ok && n0 + c < N)
-          *reinterpret_cast<uint4*>(out_bf16 + static_cast<size_t>(row) * N + n0 + c) =
-              make_uint4(g[0], g[1], g[2], g[3]);
-      }
-    }
+    // the stores have read shared memory (they complete with the grid)
+    if (EPI != kHead && t == 0) bulk_wait_read<0>();
+    if constexpr (CL > 1) cluster_sync();
   }
 }
 
@@ -457,33 +694,143 @@ int tensor_map_encoder(EncodeTiled* fn) {
   return rc;
 }
 
-// descriptor of a row-major bf16 (rows, cols) matrix, loaded in boxes of
-// box_rows x 64 with the 128-byte swizzle; out-of-bounds elements read as 0
-int encode_bf16(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int cols,
-                int box_rows) {
+// descriptor of a row-major (rows, cols) matrix of bf16 or fp32, moved in
+// boxes of box_rows x box_cols with the given swizzle; out-of-bounds
+// elements read as 0 and are not written
+int encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, bool fp32, int rows, int cols,
+              int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * (fp32 ? 4 : 2)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+         const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
 }
 
-template <int BN, int EPI>
-int launch_layer(const CUtensorMap& a, const CUtensorMap& w, const float* noise, const void* bias,
-                 const float* resid, float* out_f32, __nv_bfloat16* out_bf16, int M, int N, int K,
-                 cudaStream_t stream) {
+// an operand: bf16 boxes of box_rows x 64 (one k-block) with the 128-byte swizzle
+int encode_operand(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int cols,
+                   int box_rows) {
+  return encode_2d(fn, map, base, false, rows, cols, box_rows, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// an epilogue output: a chunk's box of 64 rows x 32 columns, fp32 in
+// 128-byte rows or bf16 in 64-byte rows, each swizzled across its rows
+int encode_output(EncodeTiled fn, CUtensorMap* map, const void* base, bool fp32, int rows,
+                  int cols) {
+  return encode_2d(fn, map, base, fp32, rows, cols, BM, kChunkCols,
+                   fp32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// the SMs of the current device
+int device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
+// The blocks a launch of trunk_gemm_kernel<BN, EPI, CL, WGT> takes for an
+// M x N output: one a schedule unit, and at most as many as are resident
+// at once (one block an SM; with clusters, as many clusters as fit).
+template <int BN, int EPI, int CL, int WGT>
+int layer_blocks(int M, int N, int* blocks) {
   // above 48 KB of dynamic shared memory needs the opt-in, once per kernel
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      trunk_gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN));
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(trunk_gemm_kernel<BN, EPI, CL, WGT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN, EPI, WGT));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  trunk_gemm_kernel<BN, EPI><<<grid, kThreads, smem_bytes(BN), stream>>>(
-      a, w, noise, static_cast<const float*>(bias), resid, out_f32, out_bf16, M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  int resident = 0;
+  if constexpr (CL == 1) {
+    const int rc = device_sms(&resident);
+    if (rc != 0) return rc;
+  } else {
+    static int clusters = 0;
+    static const cudaError_t occ = [] {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute cluster[1];
+      cluster[0].id = cudaLaunchAttributeClusterDimension;
+      cluster[0].val.clusterDim.x = CL;
+      cluster[0].val.clusterDim.y = 1;
+      cluster[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(CL);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = smem_bytes(BN, EPI, WGT);
+      cfg.attrs = cluster;
+      cfg.numAttrs = 1;
+      return cudaOccupancyMaxActiveClusters(&clusters, trunk_gemm_kernel<BN, EPI, CL, WGT>, &cfg);
+    }();
+    if (occ != cudaSuccess) return static_cast<int>(occ);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    resident = clusters;
+  }
+  const int units = dhtrunk::unit_count(M, N, BM * WGT * CL, BN);
+  *blocks = CL * (units < resident ? units : resident);
+  return 0;
+}
+
+template <int BN, int EPI, int CL, int WGT>
+int launch_layer(const CUtensorMap& a, const CUtensorMap& w, const CUtensorMap& o32,
+                 const CUtensorMap& o16, const float* noise, const void* bias, float* out_f32,
+                 int M, int N, int K, cudaStream_t stream) {
+  int blocks = 0;
+  const int rc = layer_blocks<BN, EPI, CL, WGT>(M, N, &blocks);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CL;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes(BN, EPI, WGT);
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, trunk_gemm_kernel<BN, EPI, CL, WGT>, a, w, o32, o16, noise,
+                         static_cast<const float*>(bias), out_f32, M, N, K);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The D x D layers' schedule at batch B: whether it is a large batch, and
+// layer b's 64-row tiles and the blocks a launch of it takes.
+int hidden_schedule(int B, int D, bool* large, int* tiles, int* blocks) {
+  int sms = 0;
+  const int rc = device_sms(&sms);
+  if (rc != 0) return rc;
+  *large = dhtrunk::unit_count(B, D, BM, kHiddenBN) > kLargeTilesPerSm * sms;
+  if (*large) {
+    *tiles = 2 * dhtrunk::unit_count(B, D, 2 * BM, kHiddenBN);
+    return layer_blocks<kHiddenBN, kResidual, 2, 1>(B, D, blocks);
+  }
+  *tiles = dhtrunk::unit_count(B, D, BM, kHiddenBN);
+  return layer_blocks<kHiddenBN, kResidual, 1, 1>(B, D, blocks);
+}
+
+// The three residual blocks' layers a and b; at a large batch layer a's
+// warpgroups share 128-row tiles and layer b runs in clusters of two.
+template <bool LARGE>
+int residual_blocks(const CUtensorMap& t_hs, const CUtensorMap& t_y, const CUtensorMap* t_w,
+                    const CUtensorMap& t_h_out, const CUtensorMap& t_hs_out,
+                    const CUtensorMap& t_y_out, const void* const* params, float* h, int B, int D,
+                    cudaStream_t s) {
+  const CUtensorMap t_none = {};
+  int rc = 0;
+  for (int blk = 0; blk < 3 && rc == 0; ++blk) {
+    const int p = 1 + 2 * blk;
+    rc = launch_layer<kHiddenBN, kHidden, 1, LARGE ? 2 : 1>(
+        t_hs, t_w[p], t_none, t_y_out, nullptr, params[2 * p + 1], nullptr, B, D, D, s);
+    // the last block's fp32 h has no reader: the head reads the shadow
+    if (rc == 0)
+      rc = launch_layer<kHiddenBN, kResidual, LARGE ? 2 : 1, 1>(
+          t_y, t_w[p + 1], t_h_out, t_hs_out, nullptr, params[2 * p + 3], blk < 2 ? h : nullptr,
+          B, D, D, s);
+  }
+  return rc;
 }
 
 }  // namespace
@@ -500,44 +847,57 @@ int launch_layer(const CUtensorMap& a, const CUtensorMap& w, const float* noise,
 extern "C" int dhtrunk_forward(const void* const* params, const void* noise, void* h, void* hs,
                                void* y, void* out, int B, int K0, int D, int O, void* stream) {
   if (B <= 0) return 0;
-  if (K0 % BK != 0 || K0 > kStages * BK || D % BK != 0 || O > kHeadBN ||
-      (B + BM - 1) / BM > 65535)
+  if (K0 % BK != 0 || K0 > kMaxNoiseBlocks * BK || D % BK != 0 || O > kHeadBN)
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn = nullptr;
   int rc = tensor_map_encoder(&fn);
+  bool large = false;
+  int tiles = 0, blocks = 0;
+  if (rc == 0) rc = hidden_schedule(B, D, &large, &tiles, &blocks);
   if (rc != 0) return rc;
-  // tensor maps: the two bf16 activations (A) and the 8 weights (W)
-  CUtensorMap t_hs, t_y, t_w[8];
-  const CUtensorMap t_none = {};  // the prelude stages its A itself
-  rc = encode_bf16(fn, &t_hs, hs, B, D, BM);
-  if (rc == 0) rc = encode_bf16(fn, &t_y, y, B, D, BM);
+  // tensor maps: the two bf16 activations as operands (A: the shadow in
+  // layer a's 128-row and the head's 64-row tiles, y in layer b's) and as
+  // outputs, fp32 h as an output (and layer b's residual), and the 8 weights
+  // (W); a layer b block in a cluster loads its half of the W tile
+  CUtensorMap t_hs_a, t_hs, t_y, t_h_out, t_hs_out, t_y_out, t_w[8];
+  const CUtensorMap t_none = {};  // the prelude stages its A itself; the head stores its own
+  rc = encode_operand(fn, &t_hs_a, hs, B, D, large ? 2 * BM : BM);
+  if (rc == 0) rc = encode_operand(fn, &t_hs, hs, B, D, BM);
+  if (rc == 0) rc = encode_operand(fn, &t_y, y, B, D, BM);
+  if (rc == 0) rc = encode_output(fn, &t_h_out, h, true, B, D);
+  if (rc == 0) rc = encode_output(fn, &t_hs_out, hs, false, B, D);
+  if (rc == 0) rc = encode_output(fn, &t_y_out, y, false, B, D);
   for (int i = 0; i < 8 && rc == 0; ++i) {
     const int n = i == 7 ? O : D, k = i == 0 ? K0 : D;
-    rc = encode_bf16(fn, &t_w[i], params[2 * i], n, k, i == 7 ? kHeadBN : kHiddenBN);
+    const bool layer_b = i > 0 && i < 7 && i % 2 == 0;
+    const int box = i == 7 ? kHeadBN : layer_b && large ? kHiddenBN / 2 : kHiddenBN;
+    rc = encode_operand(fn, &t_w[i], params[2 * i], n, k, box);
   }
   if (rc != 0) return rc;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* hp = static_cast<float*>(h);
-  __nv_bfloat16* hsp = static_cast<__nv_bfloat16*>(hs);
-  __nv_bfloat16* yp = static_cast<__nv_bfloat16*>(y);
-  rc = launch_layer<kHiddenBN, kPrelude>(t_none, t_w[0], static_cast<const float*>(noise),
-                                         params[1], nullptr, hp, hsp, B, D, K0, s);
-  for (int blk = 0; blk < 3 && rc == 0; ++blk) {
-    const int p = 1 + 2 * blk;
-    rc = launch_layer<kHiddenBN, kHidden>(t_hs, t_w[p], nullptr, params[2 * p + 1], nullptr,
-                                          nullptr, yp, B, D, D, s);
-    if (rc == 0) {
-      // the last block's fp32 h has no reader: the head reads the shadow
-      rc = launch_layer<kHiddenBN, kResidual>(t_y, t_w[p + 1], nullptr, params[2 * p + 3], hp,
-                                              blk < 2 ? hp : nullptr, hsp, B, D, D, s);
-    }
-  }
-  if (rc == 0) {
-    rc = launch_layer<kHeadBN, kHead>(t_hs, t_w[7], nullptr, params[15], nullptr,
-                                      static_cast<float*>(out), nullptr, B, O, D, s);
-  }
+  rc = launch_layer<kHiddenBN, kPrelude, 1, 1>(t_none, t_w[0], t_h_out, t_hs_out,
+                                            static_cast<const float*>(noise), params[1], hp, B, D,
+                                            K0, s);
+  if (rc == 0)
+    rc = large ? residual_blocks<true>(t_hs_a, t_y, t_w, t_h_out, t_hs_out, t_y_out, params, hp,
+                                       B, D, s)
+               : residual_blocks<false>(t_hs_a, t_y, t_w, t_h_out, t_hs_out, t_y_out, params, hp,
+                                        B, D, s);
+  if (rc == 0)
+    rc = launch_layer<kHeadBN, kHead, 1, 1>(t_hs, t_w[7], t_none, t_none, nullptr, params[15],
+                                         static_cast<float*>(out), B, O, D, s);
   return rc;
+}
+
+// The schedule dhtrunk_forward gives each residual block's layer b at
+// batch B on the current device: the 64-row tiles it computes and the
+// blocks it launches for them.  Returns a cudaError_t, 0 on success.
+extern "C" int dhtrunk_schedule(int B, int D, int* tiles, int* blocks) {
+  bool large = false;
+  *tiles = *blocks = 0;
+  return B > 0 ? hidden_schedule(B, D, &large, tiles, blocks) : 0;
 }
 
 extern "C" const char* dhtrunk_error_string(int code) {

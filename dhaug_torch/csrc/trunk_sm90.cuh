@@ -1,6 +1,6 @@
-// Index math of kernel B3 (trunk_kernels.cu) that needs no card: the
-// 128-byte swizzle of a TMA tile, the wgmma shared-memory descriptor, the
-// wgmma accumulator layout and the epilogue's lane exchanges.  Every
+// Index math of kernel B3 (trunk_kernels.cu) that needs no card: the 128-
+// and 64-byte swizzles of TMA tiles, the wgmma shared-memory descriptor,
+// the wgmma accumulator layout and the persistent tile schedule.  Every
 // function is __host__ __device__ and free of CUDA headers, so
 // tests/test_torch_trunk_host.py builds this header with
 // g++ -D__host__= -D__device__= and holds it to a Python model.
@@ -20,6 +20,15 @@ constexpr uint32_t kAtomBytes = 1024;
 // (b / 16) is XORed with the row index mod 8.
 __host__ __device__ inline uint32_t sw128_offset(uint32_t row, uint32_t b) {
   return row * kRowBytes + ((((b >> 4) ^ row) & 7u) << 4) + (b & 15u);
+}
+
+// The same for a tile of 64-byte rows written or read by TMA with
+// CU_TENSOR_MAP_SWIZZLE_64B (the epilogue's bf16 store boxes of 32 columns):
+// address bits 4-5 (the 16-byte chunk) are XORed with bits 7-8, so the
+// pattern repeats every 8 rows (512 bytes).
+__host__ __device__ inline uint32_t sw64_offset(uint32_t row, uint32_t b) {
+  const uint32_t plain = row * 64 + b;
+  return plain ^ (((plain >> 7) & 3u) << 4);
 }
 
 // wgmma shared-memory matrix descriptor of a K-major bf16 operand in that
@@ -48,41 +57,32 @@ __host__ __device__ inline int acc_col(int t, int i) {
   return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
 }
 
-// The epilogue's two lane exchanges share one shape.  Lanes l and l ^ mask
-// each hold x = [a0, a1, b0, b1], two pairs of one kind (two rows, or two
-// column groups); the lane with (l & mask) set ("hi") ends with the
-// partner's second pair then its own, the other lane with its own first pair
-// then the partner's.  One lane sends `s` (__shfl_xor_sync(.., mask)) and
-// gets the partner's `s` as `r`.
-//
-// Exchange 1 (mask 1, floats): register group j of a thread, acc[4j..4j+3],
-// is row r, columns c, c + 1 and row r + 8, the same columns (c = 8j + 2q,
-// q = lane % 4).  Afterwards the lane holds 4 consecutive columns of one
-// row, paired_row / paired_col below: a 16-byte fp32 store.
-// Exchange 2 (mask 2, packed bf16 pairs): after exchange 1, lanes q and
-// q ^ 2 hold the two halves of the same row's column groups j and j + 1;
-// afterwards the lane holds all 8 columns of group j + hi: a 16-byte bf16
-// store.
-template <class T>
-__host__ __device__ inline void halves_send(const T x[4], bool hi, T s[2]) {
-  s[0] = hi ? x[0] : x[2];
-  s[1] = hi ? x[1] : x[3];
-}
-template <class T>
-__host__ __device__ inline void halves_take(const T x[4], const T r[2], bool hi, T v[4]) {
-  v[0] = hi ? r[0] : x[0];
-  v[1] = hi ? r[1] : x[1];
-  v[2] = hi ? x[2] : r[0];
-  v[3] = hi ? x[3] : r[1];
+// The persistent schedule.  A layer's output is cut into units of
+// `unit_rows` x `bn` (a unit is one 64-row tile, or one per block of a
+// cluster that splits it by rows), numbered with the column fastest:
+// unit u covers row unit u / n_units, column tile u % n_units.  Worker w of
+// `workers` (a block, or a cluster) takes units w, w + workers,
+// w + 2 workers, ...: at any moment the workers hold consecutive units, so
+// the column tiles of one row panel run together and share its A rows in
+// L2.  A worker's two consumer warpgroups take its units in turn.
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+__host__ __device__ inline int unit_count(int rows, int cols, int unit_rows, int bn) {
+  return ceil_div(rows, unit_rows) * ceil_div(cols, bn);
 }
 
-// After exchange 1: the row (in the warpgroup's tile) that thread t holds,
-// and the first of its 4 columns in column group j.
-__host__ __device__ inline int paired_row(int t) {
-  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * (t & 1);
+// units worker w takes of `units`
+__host__ __device__ inline int worker_units(int w, int workers, int units) {
+  return w < units ? (units - 1 - w) / workers + 1 : 0;
 }
-__host__ __device__ inline int paired_col(int t, int j) {
-  return 8 * j + 4 * ((t >> 1) & 1);
+
+// row and column of the first element of worker w's j-th unit
+__host__ __device__ inline void unit_origin(int w, int workers, int j, int cols, int unit_rows,
+                                            int bn, int* m0, int* n0) {
+  const int u = w + j * workers;
+  const int n_units = ceil_div(cols, bn);
+  *m0 = (u / n_units) * unit_rows;
+  *n0 = (u % n_units) * bn;
 }
 
 }  // namespace dhtrunk

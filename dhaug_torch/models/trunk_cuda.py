@@ -11,10 +11,12 @@ adds: the precision of the TPU kernel and of XLA's default matmul there.
   tests, and the kernel's yardstick on the card).
 * :func:`trunk_forward_cuda` -- the wrapper of kernel B3
   (``csrc/trunk_kernels.cu``, built by ``ops/cuda_lib.py``): one
-  ``wgmma`` GEMM a layer, fed by TMA, whose epilogue stores every
-  activation that the next layer rounds to bf16 as bf16 (bound: operations,
-  0.102 ms at B = 8192, D = 1000 on an H100; the design is noted at the top
-  of the ``.cu`` file).
+  persistent, warp-specialized ``wgmma`` GEMM a layer, fed by TMA, whose
+  two consumer warpgroups mostly take tiles in turn so that one's epilogue
+  runs under the other's wgmmas, and whose epilogue stores every
+  activation that the next layer rounds to bf16 as bf16, through shared
+  memory and TMA (bound: operations, 0.102 ms at B = 8192, D = 1000 on an
+  H100; the design is noted at the top of the ``.cu`` file).
 * :func:`trunk_forward` -- CPU tensors to the plain version, CUDA tensors
   to the kernel or an error.  There is no fallback.
 
@@ -23,7 +25,10 @@ the TPU uses its fp32 flax trunk instead), so the CPU and the card compute
 the function the TPU path computes.
 
 ``TRUNK_LAUNCHES`` counts calls of the kernel's launcher: one per trunk
-call, which makes 8 device launches (one per layer).
+call, which makes 8 device launches (one per layer).  ``TRUNK_TILES`` and
+``TRUNK_BLOCKS`` are the 64-row output tiles and the blocks of each
+residual block's layer b in the last call that launched: more tiles than
+blocks means each block walked several tiles.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from dhaug_torch.models.generator import FkGeneratorNet
 from dhaug_torch.ops import cuda_lib
 
 TRUNK_LAUNCHES = 0
+TRUNK_TILES = 0
+TRUNK_BLOCKS = 0
 # every K and the hidden width are zero-padded to a multiple of this: the
 # kernel steps K by 64, one 128-byte row of its swizzled bf16 tiles
 PAD = 64
@@ -127,6 +134,8 @@ def _lib():
         lib.dhtrunk_forward.argtypes = [ctypes.POINTER(vp), vp, vp, vp, vp, vp,
                                         ci, ci, ci, ci, vp]
         lib.dhtrunk_forward.restype = ci
+        lib.dhtrunk_schedule.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.dhtrunk_schedule.restype = ci
         lib.dhtrunk_error_string.argtypes = [ci]
         lib.dhtrunk_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -136,10 +145,11 @@ def _lib():
 def trunk_forward_cuda(ops, noise: torch.Tensor) -> torch.Tensor:
     """B3 on the card: ``ops`` from :func:`trunk_weights` (hidden width a
     multiple of 64), noise (B, K0) fp32 -> head (B, 35) fp32.  One call
-    makes 8 device launches (one per layer) on the current stream and adds
-    1 to ``TRUNK_LAUNCHES``.  Scratch: h in fp32 (the residual), its bf16
-    shadow and y in bf16, each (B, D)."""
-    global TRUNK_LAUNCHES
+    makes 8 device launches (one per layer) on the current stream, adds
+    1 to ``TRUNK_LAUNCHES`` and sets ``TRUNK_TILES`` and ``TRUNK_BLOCKS``.
+    Scratch: h in fp32 (the residual), its bf16 shadow and y in bf16, each
+    (B, D)."""
+    global TRUNK_LAUNCHES, TRUNK_TILES, TRUNK_BLOCKS
     device = noise.device
     if device.type != "cuda":
         raise ValueError(f"trunk_forward_cuda needs CUDA tensors, got {device}")
@@ -170,8 +180,12 @@ def trunk_forward_cuda(ops, noise: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dhtrunk_forward(params, noise.data_ptr(), h.data_ptr(), hs.data_ptr(),
                                  y.data_ptr(), out.data_ptr(), B, k0, d, o, stream)
+        cuda_lib.raise_on(lib.dhtrunk_error_string, rc, "trunk_gemm_kernel")
+        tiles, blocks = ctypes.c_int(), ctypes.c_int()
+        rc = lib.dhtrunk_schedule(B, d, ctypes.byref(tiles), ctypes.byref(blocks))
     cuda_lib.raise_on(lib.dhtrunk_error_string, rc, "trunk_gemm_kernel")
     TRUNK_LAUNCHES += 1
+    TRUNK_TILES, TRUNK_BLOCKS = tiles.value, blocks.value
     return out
 
 

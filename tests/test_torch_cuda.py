@@ -254,6 +254,54 @@ def test_trunk_wrapper_rejects_bad_tensors(device):
         trunk_cuda.trunk_forward_cuda(ops[:2] + (ops[2].float(),) + ops[3:], noise)
 
 
+@pytest.mark.parametrize("dense", [64, 1000])
+@pytest.mark.parametrize("B", [1, 63, 8192, 65536 + 37])
+def test_persistent_trunk_matches_plain(device, dense, B):
+    """The persistent schedule at a single row, one ragged tile, a batch
+    of several tiles a block and the synthesis batch with a ragged last
+    tile, at one column tile (D = 64) and at the synthesis width."""
+    ops = _trunk(dense, device, seed=B)
+    noise = torch.as_tensor(np.random.default_rng(B + dense).normal(size=(B, 128)),
+                            dtype=torch.float32, device=device)
+    out = trunk_cuda.trunk_forward_cuda(ops, noise)
+    torch.cuda.synchronize()
+    assert out.shape == (B, 35) and bool(torch.isfinite(out).all())
+    max_err, mean_err = trunk_cuda.trunk_errors(out, trunk_cuda.trunk_reference_bf16(ops, noise))
+    assert max_err <= trunk_cuda.TRUNK_MAX_ERR and mean_err <= trunk_cuda.TRUNK_MEAN_ERR
+
+
+def test_trunk_rows_do_not_depend_on_the_batch_around_them(device):
+    """A row's sums run in one k order whatever tile and block take it, so
+    the rows of one 65536-row call equal, bit for bit, the same rows
+    computed in calls of 8192."""
+    ops = _trunk(1000, device)
+    noise = torch.as_tensor(np.random.default_rng(5).normal(size=(65536, 128)),
+                            dtype=torch.float32, device=device)
+    whole = trunk_cuda.trunk_forward_cuda(ops, noise)
+    parts = torch.cat([trunk_cuda.trunk_forward_cuda(ops, noise[i:i + 8192].contiguous())
+                       for i in range(0, 65536, 8192)])
+    torch.cuda.synchronize()
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.parametrize("B", [65536, 8192, 256])
+def test_trunk_counters_show_the_persistent_schedule(device, B):
+    """TRUNK_TILES and TRUNK_BLOCKS: at the synthesis batches each block
+    walks several 64-row tiles of a D x D layer, at most one block an SM;
+    with fewer tiles than SMs each block takes one."""
+    ops = _trunk(1000, device)
+    trunk_cuda.trunk_forward_cuda(ops, torch.randn(B, 128, device=device))
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles, blocks = trunk_cuda.TRUNK_TILES, trunk_cuda.TRUNK_BLOCKS
+    assert tiles == B // 64 * 4  # 1024 columns in 256-wide tiles
+    assert 1 <= blocks <= min(tiles, sms)
+    if tiles > sms:
+        assert tiles >= 3 * blocks
+    else:
+        assert blocks == tiles
+
+
 def test_short_synthesis_run_launches_both_kernels(device, tmp_path):
     from dhaug_torch import synthesize_dataset
     f0, t0 = fk_cuda.FWD_LAUNCHES, trunk_cuda.TRUNK_LAUNCHES
